@@ -1,0 +1,133 @@
+"""The port's serve CLI on the CPU: same summary keys as the reference,
+the paged decode path, and the flags of paths not ported yet refused."""
+from __future__ import annotations
+
+import pytest
+
+pytest.importorskip("torch")
+
+from repro_torch.launch import serve  # noqa: E402
+
+ARGS = ["--device", "cpu", "--requests", "4", "--max-seq", "48"]
+
+
+def _summary(main, argv, capsys):
+    import json
+    main(argv)
+    return json.loads(capsys.readouterr().out)
+
+
+def test_summary_keys_match_reference(capsys):
+    pytest.importorskip("jax")
+    from repro.launch import serve as ref_serve
+
+    got = _summary(serve.main, ARGS + ["--host-kv-gb", "0.0001"], capsys)
+    want = _summary(ref_serve.main, ARGS[2:] + ["--host-kv-gb", "0.0001"],
+                    capsys)
+    assert sorted(got) == sorted(want)
+    assert got["decode_path"] == "paged"
+    assert got["finished"] + got["rejected"] == 4 and got["finished"] > 0
+    # same policy code, same modeled clock
+    for key in ("finished", "rejected", "tokens", "wall_modeled_s",
+                "link_bytes", "host_kv_peak_pages", "streamed_pages_peak"):
+        assert got[key] == want[key], key
+
+
+def test_metrics_out_audits_clean(tmp_path, capsys):
+    path = tmp_path / "trace.json"
+    got = _summary(serve.main, ARGS + ["--preemption", "--prefix-dedup",
+                                       "--metrics-out", str(path)], capsys)
+    assert got["audit"]["ok"] and path.exists()
+
+
+@pytest.mark.parametrize("flag", [
+    ["--fleet", "2"], ["--peer"], ["--disagg"], ["--disk-kv-gb", "0.001"],
+    ["--async-data-plane"], ["--incremental-prefill"],
+    ["--router", "round_robin"], ["--disk-backing-path", "x"],
+])
+def test_unported_flags_refused(flag, capsys):
+    with pytest.raises(SystemExit) as exc:
+        serve.main(ARGS + flag)
+    assert exc.value.code == 2
+    assert "ROADMAP" in capsys.readouterr().err
+
+
+def test_profile_trace_summary_unions_device_spans():
+    """The device-coverage arithmetic of ``launch/profile_engine`` (whose
+    run needs a GPU): overlapping kernel and copy spans count once."""
+    from repro_torch.launch.profile_engine import trace_summary
+
+    ev = lambda cat, name, ts, dur: dict(ph="X", cat=cat, name=name, ts=ts,
+                                         dur=dur)
+    trace = {"traceEvents": [ev("kernel", "a", 0, 2), ev("kernel", "a", 10, 2),
+                             ev("kernel", "b", 1, 5), ev("gpu_memcpy", "m",
+                                                         4, 3),
+                             ev("cpu_op", "x", 0, 100)]}
+    out = trace_summary(trace, wall_us=20.0)
+    assert out["kernel_ms"] == pytest.approx(0.008)      # [0,6) + [10,12)
+    assert out["copy_ms"] == pytest.approx(0.003)
+    assert out["busy_ms"] == pytest.approx(0.009)        # [0,7) + [10,12)
+    assert out["copy_kernel_overlap_ms"] == pytest.approx(0.002)   # [4,6)
+    assert out["idle_share"] == pytest.approx(1 - 9 / 20)
+    assert [k["name"] for k in out["top_kernels"]] == ["b", "a"]
+    assert out["kernel_launches"] == 3
+
+
+@pytest.mark.parametrize("field,value", [
+    ("disk_kv_bytes", 1e6), ("async_data_plane", True),
+    ("incremental_prefill", True), ("role", "prefill"),
+])
+def test_engine_refuses_unported_settings(field, value):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduce_config
+    from repro_torch.core.hardware import A10
+    from repro_torch.serving.engine import EngineConfig
+
+    ecfg = EngineConfig(max_batch=2, max_seq=32, **{field: value})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        serve.build_engine("x", reduce_config(get_config("qwen2.5-3b")), A10,
+                           ecfg, [0.01], device="cpu")
+
+
+def test_chunk_prefill_runtime_refused():
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduce_config
+    from repro_torch.core.interval import OffloadPlan
+    from repro_torch.core.memory_manager import OffloadRuntime
+    from repro_torch.models.model import build_model
+
+    rt = OffloadRuntime(build_model(reduce_config(get_config("qwen2.5-3b"))),
+                        OffloadPlan(2, 1), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue B item 3"):
+        rt.paged_prefill_chunk()
+
+
+def test_engine_holds_the_current_intervals_placement():
+    """One placement at a time, rebuilt on an interval switch; its resident
+    units and tail are the plan's device units less the two-slot ring,
+    which exists only on a GPU (``tests/test_torch_cuda.py`` checks the
+    card's memory)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduce_config
+    from repro_torch.core import costs
+    from repro_torch.core.hardware import A10
+    from repro_torch.core.interval import NO_OFFLOAD
+    from repro_torch.models.spec import tree_leaves
+    from repro_torch.serving.engine import EngineConfig
+
+    cfg = reduce_config(get_config("qwen2.5-3b"))
+    eng = serve.build_engine("x", cfg, A10, EngineConfig(
+        max_batch=2, max_seq=32, hbm_budget_bytes=1e9), [0.01], device="cpu")
+    unit = costs.unit_weight_bytes(cfg)
+    nbytes = lambda tree: sum(t.numel() * t.element_size()
+                              for t in tree_leaves(tree))
+    for iv in (NO_OFFLOAD, 1, 2, NO_OFFLOAD):
+        assert eng.set_interval(iv)
+        rt, placed = eng._rt()
+        assert rt.plan.interval == iv and eng._rt()[0] is rt
+        ring = 2 * unit if rt.plan.enabled else 0
+        blk = placed["blocks"]
+        assert nbytes(blk["resident"]) + nbytes(blk["tail"]) + ring == \
+            rt.plan.device_bytes(unit)
+        # nothing is pinned or prefetched on the CPU
+        assert eng.host_weight_bytes == 0 and eng.prefetch_copies == 0
