@@ -13,16 +13,24 @@ Phases, each fatal on failure:
    ``scaled_dot_product_attention``.
 3. Full-width qwen2.5-3b (random weights, seed 0) served by the port's
    engine with online interval autotuning and a host KV tier: every request
-   finishes at a finite offloading interval, the trace audit is clean, both
-   kernels ran on the main path, offloaded weight units sat in pinned host
-   memory and were prefetched on the side stream; then the bucketed-prefill
-   bitwise contract on two prompts that share a 2-page prefix.
-   The full-width prefill through the flash kernel is held against the
-   same prefill through plain dense attention.
+   finishes at a finite offloading interval, the trace audit is clean, the
+   decode and flash kernels ran on the main path, offloaded weight units
+   sat in pinned host memory and were prefetched on the side stream; then
+   the bucketed-prefill bitwise contract on two prompts that share a 2-page
+   prefix. The full-width prefill through the flash kernel is held against
+   the same prefill through plain dense attention. Then the same engine
+   with incremental chunked prefill (256-token chunks) serves prompts of up
+   to 1000 tokens whose pages sit partly on the host tier: every request
+   finishes, the chunk kernel ran, every prompt token was computed once,
+   chunks streamed host pages, and the longest prompt's final-chunk logits
+   agree with its one-shot prefill.
 4. The CUDA engine in lockstep with the same engine on the CPU (the
    kernels' plain versions) on a small model at interval 2 with a host KV
-   tier: equal iteration records, logits within the DualEngine tolerance.
-5. The port's serve CLI on the reduced default config.
+   tier, once with one-shot prefills and once with incremental chunked
+   prefill: equal iteration records, logits within the DualEngine
+   tolerance.
+5. The port's serve CLI on the reduced default config, with one-shot and
+   with incremental chunked prefill.
 
 Prints a JSON ``kernels`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
@@ -208,6 +216,80 @@ def check_flash(flush: torch.Tensor) -> dict:
             "check": "pass", "checks": list(cases) + ["offset", "ragged"]}
 
 
+def check_chunk(flush: torch.Tensor) -> dict:
+    from repro_torch.kernels import prefill_attention as PA
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(3)
+    h, vh, d, page, layers, batch = 16, 2, 128, 16, 36, 8
+    nb = MAX_SEQ // page
+    frames = 2 * batch * nb + 1                 # the smoke engine's pool
+    pool = torch.randn((frames, page, layers, 2, vh, d), generator=gen,
+                       device=dev).to(torch.bfloat16)
+    layer = 17
+    kp, vp = pool[:, :, layer, 0], pool[:, :, layer, 1]
+    q = torch.randn((256, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    bt = torch.randperm(frames - 1, generator=gen, device=dev)[:nb].to(
+        torch.int32)
+    bt_pad = bt.clone()
+    bt_pad[32:] = 99_999        # out-of-range entries past the context
+    bt_pad[40:] = -3
+    # (queries, table, start, context_len): the serving chunk first
+    cases = {"main": (q, bt, 768, 1024), "first_chunk": (q, bt, 0, 256),
+             "partial_final": (q[:77], bt, 512, 589),
+             "padded_oob": (q, bt_pad, 256, 512),
+             "context_clamped": (q, bt, 700, 800),
+             "context_zero": (q[:64], bt, 0, 0),
+             "single_token": (q[:1], bt, 1000, 1001)}
+    errs = []
+    for name, (qq, tt, st, cl) in cases.items():
+        got = PA.paged_chunk_attention(qq, kp, vp, tt, st, cl)
+        want = PA.paged_chunk_attention_plain(qq, kp, vp, tt, st, cl)
+        errs.append(max_err(got, want, f"paged_chunk[{name}]"))
+        if cl == 0 and torch.count_nonzero(got):
+            raise AssertionError("paged_chunk[context_zero]: not all zeros")
+    c, start, cl = 256, 768, 1024
+    ms = time_ms(lambda: PA.paged_chunk_attention(q, kp, vp, bt, start, cl),
+                 flush=flush)
+    plain_ms = time_ms(lambda: PA.paged_chunk_attention_plain(
+        q, kp, vp, bt, start, cl))
+    # a reference point only (not the library yardstick: no single PyTorch
+    # call reads through a block table): SDPA over the context gathered
+    # into contiguous K/V beforehand, bottom-right causal alignment
+    import torch.nn.functional as F
+    kg = kp[bt.long()].reshape(1, nb * page, vh, d).transpose(1, 2)
+    vg = vp[bt.long()].reshape(1, nb * page, vh, d).transpose(1, 2)
+    kg, vg = (x.repeat_interleave(h // vh, dim=1).contiguous()
+              for x in (kg, vg))
+    qg = q.transpose(0, 1)[None].contiguous()
+    vis = (torch.arange(cl, device=dev)[None]
+           <= start + torch.arange(c, device=dev)[:, None])
+    sdpa = lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=vis)
+    sdpa_err = float((sdpa()[0].transpose(0, 1).float()
+                      - PA.paged_chunk_attention(q, kp, vp, bt, start, cl)
+                      .float()).abs().max())
+    sdpa_ms = time_ms(sdpa, flush=flush)
+    live_keys = min(-(-cl // page) * page, start + c)
+    pairs = sum(min(start + t + 1, live_keys) for t in range(c))
+    flops = 4 * h * d * pairs                  # QK^T and PV, visible keys
+    nbytes = (live_keys * vh * d * 2 * 2       # K and V, bf16, read once
+              + 2 * c * h * d * 2              # q in, out
+              + nb * 4)
+    bound_ms, bound_by = max((nbytes / HBM_BYTES_S * 1e3, "bytes"),
+                             (flops / BF16_FLOPS_S * 1e3, "operations"))
+    log(f"paged_chunk: C={c} H={h} V={vh} D={d} page={page} nb={nb} "
+        f"start={start} context_len={cl} checks={list(cases)} "
+        f"max_abs_err={max(errs):.3g} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound_ms:.5f} ({bound_by}) "
+        f"sdpa_pregathered_ms={sdpa_ms:.4f} (max |diff| {sdpa_err:.3g})")
+    return {"name": "paged_chunk_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/prefill_attention.cu",
+            "replaces": "src/repro/kernels/prefill_attention.py:78",
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "check": "pass", "checks": list(cases)}
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: full-width engine
 # ---------------------------------------------------------------------------
@@ -218,6 +300,7 @@ def engine_phase() -> dict:
     from repro_torch.core.memory_manager import merge_stacked
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import prefill_attention as PA
     from repro_torch.launch.profile_engine import (PAGE_SIZE, TPOT_SLO_S,
                                                    smoke_engine,
                                                    smoke_requests)
@@ -228,7 +311,7 @@ def engine_phase() -> dict:
     cfg, page_size = eng.cfg, PAGE_SIZE
     rng = np.random.default_rng(0)
     reqs = smoke_requests(cfg.vocab_size, 16, rng)
-    DA.launches = FA.launches = 0
+    DA.launches = FA.launches = PA.launches = 0
     t0 = time.perf_counter()
     out = eng.run(reqs, submit_all=True)
     torch.cuda.synchronize()
@@ -317,12 +400,100 @@ def engine_phase() -> dict:
     return launches
 
 
-def reference_phase() -> None:
+def incremental_phase() -> int:
+    """The full-width engine with incremental chunked prefill: prompts of up
+    to 1000 tokens in 256-token chunks through the paged chunk-prefill
+    kernel, over pages that sit partly on the host tier. Returns the chunk
+    kernel's launches on this path."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import prefill_attention as PA
+    from repro_torch.launch.profile_engine import (LONG_PROMPT_LENS,
+                                                   smoke_engine,
+                                                   smoke_requests)
+
+    eng = smoke_engine(prefill_chunk_tokens=256, incremental_prefill=True)
+    cfg = eng.cfg
+    reqs = smoke_requests(cfg.vocab_size, 16, np.random.default_rng(1),
+                          LONG_PROMPT_LENS)
+    first_logits: dict[int, np.ndarray] = {}
+    greedy = eng._greedy
+
+    def record(req, logits):
+        # a request's first token comes from its final chunk's logits
+        first_logits.setdefault(req.rid, logits.copy())
+        return greedy(req, logits)
+
+    eng._greedy = record
+    DA.launches = FA.launches = PA.launches = 0
+    t0 = time.perf_counter()
+    out = eng.run(reqs, submit_all=True)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {"paged_decode_attention": DA.launches,
+                "flash_attention": FA.launches,
+                "paged_chunk_attention": PA.launches}
+    report = eng.trace.audit()
+    prompt_tokens = sum(r.prompt_len for r in reqs)
+    summary = {
+        "finished": out["finished"], "rejected": out["rejected"],
+        "tokens": out["tokens"], "launches": launches,
+        "chunks": len(eng.chunk_ms),
+        "chunked_prefill_iters": out["chunked_prefill_iters"],
+        "prefill_tokens_computed": eng.prefill_tokens_computed,
+        "prompt_tokens": prompt_tokens,
+        "chunk_pages_streamed": eng.chunk_pages_streamed,
+        "host_kv_peak_pages": eng.host_kv_peak_pages,
+        "intervals": sorted({it.interval for it in eng.trace.iterations}),
+        "audit_ok": report.ok, "audit_checks": report.checks,
+        # stream time of each chunk step (CUDA events)
+        "chunk_stream_ms_median": statistics.median(eng.chunk_ms),
+        "chunk_stream_ms_max": max(eng.chunk_ms),
+        "decode_stream_ms_median": statistics.median(eng.decode_ms),
+        "run_s": run_s, "wall_modeled_s": out["wall_modeled_s"],
+    }
+    log("incremental_engine: " + json.dumps(summary))
+    if out["finished"] != len(reqs):
+        raise AssertionError(f"incremental engine finished {out['finished']} "
+                             f"of {len(reqs)} requests")
+    if not report.ok:
+        raise AssertionError(f"trace audit: {report.violations[:5]}")
+    if PA.launches <= 0 or DA.launches <= 0:
+        raise AssertionError(f"a kernel never ran on the path: {launches}")
+    if eng.prefill_tokens_computed != prompt_tokens:
+        raise AssertionError(
+            f"prefill computed {eng.prefill_tokens_computed} tokens for "
+            f"{prompt_tokens} prompt tokens: not linear")
+    if eng.chunk_pages_streamed <= 0:
+        raise AssertionError("no chunk streamed a host-tier page")
+
+    # the longest prompt's final-chunk logits (read through the pool's bf16
+    # prefix KV) against its one-shot bucketed prefill on the card
+    longest = max(reqs, key=lambda r: r.prompt_len)
+    want, _, _ = eng._bucketed_prefill(longest.prompt, longest.prompt_len)
+    got = torch.as_tensor(first_logits[longest.rid])
+    want = want[0].float().cpu()
+    rel = float((got - want).norm() / want.norm())
+    log(f"incremental_vs_one_shot: prompt {longest.prompt_len} tokens, "
+        f"rel_l2 {rel:.4g} (bound {FULL_REL_L2}), argmax equal "
+        f"{bool(got.argmax() == want.argmax())}, chunk stream ms median "
+        f"{summary['chunk_stream_ms_median']:.3f} vs one-shot prefill "
+        f"{eng.prefill_ms[-1]:.3f} ms")
+    if not rel <= FULL_REL_L2:
+        raise AssertionError("incremental chunk logits disagree with the "
+                             "one-shot prefill")
+    return PA.launches
+
+
+def reference_phase(name: str = "reference_lockstep",
+                    incremental: bool = False) -> None:
     """The CUDA engine against the same engine on the CPU, which runs the
     kernels' plain versions: a small model, the same weights and the same
     trace, step by step. Scheduling decisions and iteration records must be
     equal, logits agree at the DualEngine tolerance, and on a numeric tie
-    the CUDA engine is teacher-forced with the CPU engine's token."""
+    the CUDA engine is teacher-forced with the CPU engine's token. With
+    ``incremental``, prompts prefill in 16-token chunks through the chunk
+    kernel and some of those chunks read host-tier pages."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -343,7 +514,9 @@ def reference_phase() -> None:
     ecfg = EngineConfig(max_batch=4, max_seq=64, page_size=16,
                         hbm_budget_bytes=OffloadPlan(units, 2).device_bytes(
                             costs.unit_weight_bytes(cfg)) + 6 * page_bytes,
-                        host_kv_bytes=32 * page_bytes)
+                        host_kv_bytes=32 * page_bytes,
+                        prefill_chunk_tokens=16 if incremental else 0,
+                        incremental_prefill=incremental)
     params = build_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
     slos = [0.002 * k for k in range(1, 30)]
     cpu, gpu = (build_engine(f"ref-{d}", cfg, PRESETS["h100"], ecfg, slos,
@@ -401,10 +574,12 @@ def reference_phase() -> None:
             raise AssertionError("iteration records differ")
     done = [sorted((r.rid, tuple(r.generated)) for r in e.finished)
             for e in (cpu, gpu)]
-    log(f"reference_lockstep: {len(gpu.finished)} finished, "
+    log(f"{name}: {len(gpu.finished)} finished, "
         f"{state['compares']} token compares, {state['ties']} ties, "
         f"max logit |err| {state['err']:.4g}, interval {gpu.interval}, "
-        f"streamed pages peak {gpu.streamed_pages_peak}, "
+        f"streamed pages peak {gpu.streamed_pages_peak}, chunk pages "
+        f"streamed {gpu.chunk_pages_streamed}, prefill tokens computed "
+        f"{gpu.prefill_tokens_computed} / {cpu.prefill_tokens_computed}, "
         f"records {len(gpu.trace.iterations)} equal")
     if done[0] != done[1] or len(done[1]) != len(prompts):
         raise AssertionError("CUDA and CPU engines finished differently")
@@ -412,19 +587,28 @@ def reference_phase() -> None:
         raise AssertionError(f"too many ties: {state['ties']}")
     if gpu.prefetch_copies <= 0 or gpu.streamed_pages_peak <= 0:
         raise AssertionError("the reference trace bypassed offloading")
+    if gpu.prefill_tokens_computed != cpu.prefill_tokens_computed:
+        raise AssertionError("CUDA and CPU engines computed different "
+                             "prefill tokens")
+    if incremental and (gpu.chunk_pages_streamed <= 0
+                        or gpu.prefill_tokens_computed
+                        != sum(len(p) for p in prompts)):
+        raise AssertionError("the incremental trace bypassed the chunk path "
+                             "over host pages, or was not linear")
 
 
-def cli_phase() -> None:
+def cli_phase(extra: tuple[str, ...] = (), trace: str = "smoke_cli_trace"
+              ) -> None:
     from repro_torch.launch import serve
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     out = serve.main(["--device", "cuda", "--hw", "h100", "--requests", "6",
-                      "--host-kv-gb", "0.0001", "--metrics-out",
-                      str(out_dir / "smoke_cli_trace.json")])
+                      "--host-kv-gb", "0.0001", *extra, "--metrics-out",
+                      str(out_dir / f"{trace}.json")])
     if out["finished"] + out["rejected"] != 6 or out["finished"] == 0:
-        raise AssertionError(f"serve CLI: {out['finished']} finished, "
-                             f"{out['rejected']} rejected of 6")
+        raise AssertionError(f"serve CLI {list(extra)}: {out['finished']} "
+                             f"finished, {out['rejected']} rejected of 6")
 
 
 def main() -> int:
@@ -446,16 +630,22 @@ def main() -> int:
         log(f"ptxas {name}: {' | '.join(regs)}")
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
-    kernels = [check_decode(flush), check_flash(flush)]
+    kernels = [check_decode(flush), check_flash(flush), check_chunk(flush)]
     del flush
     log("kernels checked: " + json.dumps(
         {k["name"]: k["check"] for k in kernels}))
 
+    # each kernel's launches come from its own path: decode and flash from
+    # the one-shot engine run, the chunk kernel from the incremental one
     launches = engine_phase()
+    launches["paged_chunk_attention"] = incremental_phase()
     for k in kernels:
         k["launches"] = launches[k["name"]]
     reference_phase()
+    reference_phase("incremental_lockstep", incremental=True)
     cli_phase()
+    cli_phase(("--prefill-chunk-tokens", "16", "--incremental-prefill"),
+              "smoke_cli_incremental_trace")
 
     log(f"total seconds: {time.perf_counter() - t_start:.1f}")
     log(card)                       # name, power limit as nvidia-smi gives

@@ -270,10 +270,37 @@ class OffloadRuntime:
         return logits, pool
 
     # ----- paged chunk prefill --------------------------------------------------
-    def paged_prefill_chunk(self, *args, **kwargs):
-        raise NotImplementedError(
-            "incremental chunk prefill needs the paged chunk-prefill kernel "
-            "(ROADMAP Queue B item 3)")
+    def paged_prefill_chunk(self, params_split: Params, tokens: torch.Tensor,
+                            start: int, pool: torch.Tensor,
+                            block_table: torch.Tensor, context_len: int,
+                            write_frames: torch.Tensor,
+                            write_offsets: torch.Tensor):
+        """One incremental prefill chunk through the physical KV page pool.
+
+        ``tokens``: [C] — the chunk at absolute positions
+        ``start..start+C-1`` of one request. Same group walk as
+        ``paged_decode_step`` (each group's offloaded unit is prefetched on
+        the side stream while its resident units compute), but each unit
+        writes the chunk's K/V at (write_frames, write_offsets) [C], in
+        place, and attends the chunk's queries over the request's resident
+        context through ``block_table`` [nb] / ``context_len`` — no prefix
+        recompute. Returns (last-position logits [1, V], pool)."""
+        cfg, vkv = self.model.cfg, self.model.virtual_kv
+        pat = len(cfg.pattern)
+        wf, wo = write_frames.long(), write_offsets.long()
+
+        def apply_unit(x, pslices, unit_idx):
+            for j, blk in enumerate(cfg.pattern):
+                x, _ = T.apply_block_prefill_paged(
+                    cfg, blk, pslices[j], x, start, pool, unit_idx * pat + j,
+                    block_table, context_len, wf, wo, vkv)
+            return x, None
+
+        x = T.embed_tokens(cfg, params_split, tokens[None])    # [1, C, D]
+        x, _ = self._walk(params_split, x, apply_unit)
+        x = L.apply_norm(cfg, params_split["final_norm"], x)
+        logits = T.lm_logits(cfg, params_split, x[:, -1:])[:, 0]
+        return logits, pool
 
     # ----- prefill --------------------------------------------------------------
     def prefill(self, params_split: Params, inputs: dict, cache_len: int,

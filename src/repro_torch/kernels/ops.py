@@ -19,8 +19,10 @@ import torch
 
 from repro_torch.kernels.decode_attention import paged_decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.prefill_attention import paged_chunk_attention
 
-__all__ = ["flash_attention", "paged_decode_attention", "gather_kv_pages",
+__all__ = ["flash_attention", "paged_decode_attention",
+           "paged_chunk_attention", "gather_kv_pages",
            "scatter_kv_pages", "copy_pages_on_device", "copy_pages_to_host",
            "copy_pages_from_host", "pack_token_pages"]
 

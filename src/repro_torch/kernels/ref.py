@@ -60,3 +60,37 @@ def ref_paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     p = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)
     o = torch.einsum("bvgs,bsvd->bvgd", p, v)
     return o.reshape(b, h, d).to(q.dtype)
+
+
+def ref_paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor,
+                              block_table: torch.Tensor, start: int,
+                              context_len: int) -> torch.Tensor:
+    """q: [C,H,D] at absolute positions ``start..start+C-1``; pages:
+    [npages, page, V, D]; block_table: [nb]. Returns [C,H,D].
+
+    Dense over the whole table, with the chunk kernel's rules: table entries
+    clamped into the pool, ``context_len`` into ``[0, nb*page]``, ``start``
+    into ``[0, context_len]``; query t sees key position k when
+    ``k <= start + t`` and k's page is live (``j * page < context_len``).
+    There is no separate length mask, so keys past ``context_len`` inside
+    the last live page stay visible to queries past it."""
+    c, h, d = q.shape
+    npages, page, vh, _ = k_pages.shape
+    nb = block_table.shape[0]
+    g = h // vh
+    cl = min(max(int(context_len), 0), nb * page)
+    st = min(max(int(start), 0), cl)
+    bt = block_table.long().clamp(0, npages - 1)
+    k = k_pages[bt].reshape(nb * page, vh, d).float()
+    v = v_pages[bt].reshape(nb * page, vh, d).float()
+    qf = q.reshape(c, vh, g, d).float() / math.sqrt(d)
+    s = torch.einsum("cvgd,svd->cvgs", qf, k)
+    kpos = torch.arange(nb * page, device=q.device)
+    qpos = st + torch.arange(c, device=q.device)
+    valid = ((kpos[None] <= qpos[:, None])
+             & ((kpos // page * page) < cl)[None])          # [C, nb*page]
+    s = s.masked_fill(~valid[:, None, None], -math.inf)
+    p = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)
+    o = torch.einsum("cvgs,svd->cvgd", p, v)
+    return o.reshape(c, h, d).to(q.dtype)

@@ -35,20 +35,27 @@ from repro_torch.serving.engine import EngineConfig
 from repro_torch.serving.request import Request
 
 PROMPT_LENS = (512, 300, 128, 64, 480, 200, 33, 17)
+# prompts that span several 256-token chunks, for incremental prefill
+LONG_PROMPT_LENS = (1000, 760, 130, 40)
 MAX_SEQ = 1024
 PAGE_SIZE = 16
 TPOT_SLO_S = 0.02
 
 
-def smoke_engine(device: str = "cuda"):
+def smoke_engine(device: str = "cuda", *, prefill_chunk_tokens: int = 0,
+                 incremental_prefill: bool = False):
     """The full-width engine of the smoke and profile runs.
 
     HBM holds the resident units of interval 6 plus 40 KV pages: the memory
     ceiling keeps the autotuner at a finite interval, so offloaded units
     live in pinned host memory and stream every iteration. A 20 ms TPOT
     leaves interval 6 as the tuner's only feasible choice on the modeled
-    clock (~15 ms vs ~18 ms at 5), so the 8 requests' KV pages overflow the
-    device pool and cold prefixes stream from the host tier."""
+    clock (~15 ms vs ~18 ms at 5), so the requests' KV pages overflow the
+    device pool and cold prefixes stream from the host tier.
+    ``prefill_chunk_tokens`` / ``incremental_prefill`` are the
+    ``EngineConfig`` fields of chunked prefill: with both, long prompts
+    (``LONG_PROMPT_LENS``) prefill chunk by chunk through the paged
+    chunk-prefill kernel over pages that sit partly on the host tier."""
     cfg = get_config("qwen2.5-3b")
     _, units = pattern_info(cfg)
     page_bytes = PAGE_SIZE * costs.kv_cache_bytes(cfg, 1, 1)
@@ -56,18 +63,21 @@ def smoke_engine(device: str = "cuda"):
         max_batch=8, max_seq=MAX_SEQ, page_size=PAGE_SIZE,
         hbm_budget_bytes=OffloadPlan(units, 6).device_bytes(
             costs.unit_weight_bytes(cfg)) + 40 * page_bytes,
-        host_kv_bytes=128 * page_bytes, autotune=True)
+        host_kv_bytes=128 * page_bytes, autotune=True,
+        prefill_chunk_tokens=prefill_chunk_tokens,
+        incremental_prefill=incremental_prefill)
     return build_engine("smoke", cfg, PRESETS["h100"], ecfg,
                         [0.002 * k for k in range(1, 120)], device=device)
 
 
-def smoke_requests(vocab: int, max_new_tokens: int,
-                   rng: np.random.Generator) -> list[Request]:
-    """One request per ``PROMPT_LENS`` entry, random prompt tokens."""
+def smoke_requests(vocab: int, max_new_tokens: int, rng: np.random.Generator,
+                   prompt_lens: tuple[int, ...] = PROMPT_LENS
+                   ) -> list[Request]:
+    """One request per ``prompt_lens`` entry, random prompt tokens."""
     return [Request(rid=i, prompt=rng.integers(0, vocab, n).astype(np.int32),
                     max_new_tokens=max_new_tokens, ttft_slo_s=2.0,
                     tpot_slo_s=TPOT_SLO_S)
-            for i, n in enumerate(PROMPT_LENS)]
+            for i, n in enumerate(prompt_lens)]
 
 
 def _union_us(spans: list[tuple[float, float]]) -> float:

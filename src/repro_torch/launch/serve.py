@@ -7,11 +7,12 @@ offloading (port of ``repro.launch.serve``).
 Builds the offline performance record (the analyzer's two-stage step 1),
 starts an engine on ``--device`` (default cuda), replays a synthetic
 request stream, and reports SLO attainment + throughput with the
-reference's summary keys. Flags of paths not ported yet exit with an error
-that names their ROADMAP item: ``--fleet``/``--peer``/``--disagg`` (and the
-fleet's ``--router``/``--prefill-instances``/``--decode-instances``),
-``--disk-kv-gb``/``--disk-backing-path``, ``--async-data-plane`` and
-``--incremental-prefill``.
+reference's summary keys. ``--prefill-chunk-tokens N --incremental-prefill``
+serves long prompts in chunks through the paged chunk-prefill kernel. Flags
+of paths not ported yet exit with an error that names their ROADMAP item:
+``--fleet``/``--peer``/``--disagg`` (and the fleet's ``--router``/
+``--prefill-instances``/``--decode-instances``),
+``--disk-kv-gb``/``--disk-backing-path`` and ``--async-data-plane``.
 """
 from __future__ import annotations
 
@@ -180,12 +181,14 @@ def main(argv=None) -> dict:
          "--disk-kv-gb", "Queue A item 6 (disk tier)"),
         (args.async_data_plane, "--async-data-plane",
          "Queue A item 6 (copy-stage data plane)"),
-        (args.incremental_prefill, "--incremental-prefill",
-         "Queue B item 3 (chunk-prefill kernel)"),
     ]
     for hit, flag, item in refused:
         if hit:
             ap.error(f"{flag} is not ported yet: ROADMAP {item}")
+    if args.incremental_prefill and args.prefix_dedup:
+        ap.error("--incremental-prefill is incompatible with "
+                 "--prefix-dedup (shared prompt frames would need COW "
+                 "inside the chunk kernel)")
     cfg = reduce_config(get_config(args.arch))
     hw = PRESETS[args.hw]
     ecfg = EngineConfig(max_batch=args.max_batch, max_seq=args.max_seq,

@@ -255,6 +255,44 @@ def apply_block_decode_paged(cfg: ModelConfig, blk: BlockSpec, p: Params,
     return x, pool
 
 
+def apply_block_prefill_paged(cfg: ModelConfig, blk: BlockSpec, p: Params,
+                              x: torch.Tensor, start: int,
+                              pool: torch.Tensor, layer: int,
+                              block_table: torch.Tensor, context_len: int,
+                              write_frames: torch.Tensor,
+                              write_offsets: torch.Tensor, virtual_kv: int):
+    """One prefill *chunk* through the paged KV pool (incremental prefill).
+
+    ``x``: [1, C, D] — the chunk's tokens at absolute positions
+    ``start..start+C-1``; the chunk's K/V land in place at
+    (write_frames[t], write_offsets[t]) per token, then the chunk's queries
+    attend over the request's whole resident context (``block_table`` [nb]
+    / ``context_len``) with the paged chunk-prefill kernel — no prefix
+    recompute. ``start`` and ``context_len`` are host ints, so no layer
+    reads a device scalar. Returns (x, pool).
+    """
+    if blk.mixer != "attention":
+        raise NotImplementedError(
+            "paged chunk prefill supports attention mixers only; "
+            f"recurrent-state mixer {blk.mixer!r} needs a state slab")
+    if cfg.sliding_window > 0:
+        raise NotImplementedError(
+            "paged chunk prefill has no sliding-window mask")
+    positions = (start + torch.arange(x.shape[1], dtype=torch.int32,
+                                      device=x.device))[None]
+    h = L.apply_norm(cfg, p["norm1"], x)
+    q, k1, v1 = L.qkv_project(cfg, p["attn"], h, positions, virtual_kv)
+    pool[write_frames, write_offsets, layer, 0] = k1[0].to(pool.dtype)
+    pool[write_frames, write_offsets, layer, 1] = v1[0].to(pool.dtype)
+    kv_l = pool[:, :, layer]                  # strided view, no copy
+    o = ops.paged_chunk_attention(q[0], kv_l[:, :, 0], kv_l[:, :, 1],
+                                  block_table, start, context_len)
+    x = x + L.attn_out(cfg, p["attn"], o[None])
+    if cfg.d_ff > 0:
+        x = x + _mlp(cfg, blk, p, x)
+    return x, pool
+
+
 # ---------------------------------------------------------------------------
 # Stack application (loop over R periods)
 # ---------------------------------------------------------------------------

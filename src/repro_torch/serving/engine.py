@@ -10,8 +10,9 @@ reports an ``IterationOutcome`` back. The engine still owns the *modeled*
 clock (LayerTimes under the current offload plan — token flow is real
 PyTorch compute; SLO timing is the deterministic analytic schedule) and
 every physical page byte. On a GPU it also records the stream time of each
-prefill and decode step (``prefill_ms`` / ``decode_ms``, CUDA events around
-the step, host gaps included).
+prefill, incremental prefill chunk and decode step (``prefill_ms`` /
+``chunk_ms`` / ``decode_ms``, CUDA events around the step, host gaps
+included).
 
 Decode computes through the paged decode kernel against a SINGLE physical
 page-pool buffer: the frames the ``TieredKVAllocator`` accounts for are the
@@ -41,10 +42,14 @@ host pool (a CPU tensor, pinned on a GPU) and this same buffer (no repack).
 The offloading interval is re-evaluated every iteration through the per-bus
 coordinator when the engine shares a link with peers (§4.5).
 
+With ``incremental_prefill``, each prefill chunk runs through the paged
+chunk-prefill kernel against the request's resident pages (host-tier pages
+stream through the slab and the pages the chunk writes stream back), so
+every prompt token is computed once.
+
 Not ported yet (the constructor refuses them): the disk KV tier and the
-async copy-stage data plane (ROADMAP Queue A item 6), incremental chunk
-prefill (Queue B item 3), and the fleet roles with cross-instance migration
-and handoff (Queue A item 7).
+async copy-stage data plane (ROADMAP Queue A item 6), and the fleet roles
+with cross-instance migration and handoff (Queue A item 7).
 """
 from __future__ import annotations
 
@@ -138,7 +143,7 @@ class EngineConfig:
     # effective depth is always bounded by free host frames.
     prefetch_pages_per_boundary: int = 1
     # Incremental chunked prefill: each chunk attends only its own queries
-    # against the resident paged KV (Pallas chunk kernel) instead of
+    # against the resident paged KV (paged chunk-prefill kernel) instead of
     # recomputing the whole prefix per chunk. Opt-in: chunk logits now see
     # the pool's bf16-rounded prefix KV, so numerics differ from the
     # whole-prefix recompute path at rounding level.
@@ -175,9 +180,7 @@ class ServingEngine:
         weights are drawn from ``torch.Generator`` seed 0."""
         for flag, item in (("disk_kv_bytes", "Queue A item 6 (disk tier)"),
                            ("async_data_plane",
-                            "Queue A item 6 (copy-stage data plane)"),
-                           ("incremental_prefill",
-                            "Queue B item 3 (chunk-prefill kernel)")):
+                            "Queue A item 6 (copy-stage data plane)")):
             if getattr(ecfg, flag):
                 raise NotImplementedError(
                     f"EngineConfig.{flag} is not ported yet: ROADMAP {item}")
@@ -285,15 +288,22 @@ class ServingEngine:
             if self.kv.host.total_pages > 0 else None)
         self.prefetch_pages_total = 0
 
+        if ecfg.incremental_prefill and ecfg.prefix_dedup:
+            raise NotImplementedError(
+                "incremental prefill under prefix dedup needs skip-write/"
+                "COW handling for deduped chunk pages (ROADMAP)")
         self.prefill_tokens_computed = 0   # quadratic-vs-linear evidence
+        self.chunk_pages_streamed = 0      # host pages incremental chunks read
 
         # the current interval's runtime and placed parameters (see _rt)
         self._runtime: OffloadRuntime | None = None
         self._placed: Any = None
         self._prefetch_copies_done = 0    # by runtimes already released
-        # stream time of each prefill / decode step (GPU only): CUDA events
-        # around the step, so the gaps while the host issues work count too
+        # stream time of each prefill / incremental chunk / decode step (GPU
+        # only): CUDA events around the step, so the gaps while the host
+        # issues work count too
         self.prefill_ms: list[float] = []
+        self.chunk_ms: list[float] = []
         self.decode_ms: list[float] = []
 
         # per-step observability for the differential harness
@@ -908,26 +918,90 @@ class ServingEngine:
             return 0.0
         return self.times_fn(1, tokens, "prefill").t_iter_no_offload_s
 
+    def _run_chunk_incremental(self, ch: PrefillChunk) -> np.ndarray | None:
+        """Incremental chunk compute: the chunk's C tokens run through the
+        paged chunk-prefill kernel, attending the request's RESIDENT paged
+        KV (earlier chunks' pages stay in the pool; host-tier pages stream
+        through the slab and the pages the chunk writes stream back) —
+        O(C * prefix) work instead of the recompute path's O(end). Returns
+        the chunk's last-position logits, or None to fall back to the
+        recompute path (unsupported page placement or slab overflow)."""
+        req = ch.req
+        page = self.ecfg.page_size
+        refs = self.kv.refs(req.rid)
+        n_pages = -(-ch.end // page)
+        if n_pages > len(refs) or n_pages > self.nb:
+            return None
+        bt = np.full((self.nb,), self.null_frame, np.int32)
+        stream_src: list[int] = []
+        stream_dst: list[int] = []
+        writeback: list[tuple[int, int]] = []   # (host slot, slab frame)
+        slab_next = self.slab_base
+        for i in range(n_pages):
+            r = refs[i]
+            if r.tier == DEVICE:
+                bt[i] = r.page
+            elif r.tier == HOST:
+                if slab_next >= self.null_frame:
+                    return None           # slab overflow: recompute instead
+                stream_src.append(r.page)
+                stream_dst.append(slab_next)
+                bt[i] = slab_next
+                if i >= ch.start // page:   # chunk writes into this page
+                    writeback.append((r.page, slab_next))
+                slab_next += 1
+            else:
+                return None               # disk-resident page: recompute
+        if stream_src:
+            self.pool = ops.copy_pages_from_host(
+                self.host_pool, stream_src, self.pool, stream_dst)
+            self.chunk_pages_streamed += len(stream_src)
+        toks = np.arange(ch.start, ch.end)
+        wf = bt[toks // page]
+        wo = (toks % page).astype(np.int32)
+        rt, params = self._rt()
+        dev = lambda a: torch.as_tensor(a, device=self.device)
+        logits, self.pool = self._device_call(
+            self.chunk_ms, rt.paged_prefill_chunk, params,
+            dev(req.prompt[ch.start:ch.end].astype(np.int32)), ch.start,
+            self.pool, dev(bt), ch.end, dev(wf), dev(wo))
+        if writeback:
+            # the decode step of this iteration reuses the slab from
+            # slab_base: the chunk's dirty pages go home before it returns
+            got = ops.gather_kv_pages(self.pool,
+                                      [f for _, f in writeback]).cpu()
+            for (host_slot, _), val in zip(writeback, got):
+                self.host_pool[host_slot] = val
+        self.prefill_tokens_computed += ch.end - ch.start
+        return logits[0].float().cpu().numpy()
+
     def _run_chunks(self, chunks: list[PrefillChunk]
                     ) -> tuple[float, list[tuple[PrefillChunk, np.ndarray]]]:
-        """Compute + scatter this iteration's prefill chunks. The real
-        compute recomputes the prefix (prefill over ``prompt[:end]`` —
-        causal attention makes the chunk's KV bit-identical to a one-shot
-        prefill, which is what keeps chunking numerically invisible); the
-        *modeled* chunk cost is the incremental stack time
-        T(end) - T(start), charged on top of the decode iteration it rides.
+        """Compute + scatter this iteration's prefill chunks. By default
+        the real compute recomputes the prefix (prefill over
+        ``prompt[:end]`` — causal attention makes the chunk's KV
+        bit-identical to a one-shot prefill, which is what keeps chunking
+        numerically invisible) — quadratic real work across the schedule.
+        With ``incremental_prefill`` the chunk kernel attends only the new
+        queries against resident paged KV, making real compute match the
+        *modeled* chunk cost: the incremental stack time T(end) - T(start),
+        charged on top of the decode iteration it rides.
         Returns (modeled chunk seconds, final-chunk logits)."""
         t = 0.0
         finals: list[tuple[PrefillChunk, np.ndarray]] = []
         for ch in chunks:
             req = ch.req
             page = self.ecfg.page_size
-            logits, caches1, _ = self._bucketed_prefill(req.prompt[:ch.end],
-                                                        ch.end)
-            self._scatter_prefill_kv(req, caches1, n_tokens=ch.end,
-                                     start_page=ch.start // page)
-            self.prefill_tokens_computed += ch.end
-            logits_np = logits[0].float().cpu().numpy()
+            logits_np = None
+            if self.ecfg.incremental_prefill:
+                logits_np = self._run_chunk_incremental(ch)
+            if logits_np is None:
+                logits, caches1, _ = self._bucketed_prefill(
+                    req.prompt[:ch.end], ch.end)
+                self._scatter_prefill_kv(req, caches1, n_tokens=ch.end,
+                                         start_page=ch.start // page)
+                self.prefill_tokens_computed += ch.end
+                logits_np = logits[0].float().cpu().numpy()
             # a chunk that lands on spilled (fresh host-tier) pages writes
             # them over the same link as everything else: charge the d2h
             # bytes like the one-shot path does via _modeled_ttft. Dedup'd

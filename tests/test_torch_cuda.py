@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import decode_attention as DA  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.kernels import prefill_attention as PA  # noqa: E402
 
 TOL = dict(rtol=2e-2, atol=2e-2)
 
@@ -70,12 +71,44 @@ def test_flash_kernel_matches_plain(cuda, b, h, vh, sq, sk, d, kw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c,h,vh,d,page,nb,start,cl", [
+    (40, 8, 2, 64, 16, 6, 37, 77),       # mid-prompt, partial last page
+    (16, 4, 1, 16, 8, 4, 0, 16),         # first chunk, g 4
+    (9, 4, 4, 32, 8, 5, 30, 33),         # g 1, context clamped below end
+    (1, 16, 2, 128, 16, 64, 1000, 1001),  # one token deep in the context
+    (70, 16, 2, 128, 16, 8, 0, 0),       # context_len 0: zeros
+])
+def test_chunk_kernel_matches_plain(cuda, c, h, vh, d, page, nb, start, cl):
+    rng = np.random.default_rng(2)
+    frames, layers = nb + 3, 3
+    pool = _randn(rng, frames, page, layers, 2, vh, d, dev=cuda)
+    kp, vp = pool[:, :, 2, 0], pool[:, :, 2, 1]
+    q = _randn(rng, c, h, d, dev=cuda)
+    bt = rng.permutation(frames)[:nb].astype(np.int32)
+    bt[-1] = 10_000                       # out of range past the context
+    bt = torch.from_numpy(bt).to(cuda)
+    before = PA.launches
+    got = PA.paged_chunk_attention(q, kp, vp, bt, start, cl)
+    assert PA.launches == before + 1
+    want = PA.paged_chunk_attention_plain(q, kp, vp, bt, start, cl)
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+    if cl == 0:
+        assert torch.count_nonzero(got) == 0
+
+
+@pytest.mark.cuda
 def test_kernels_refuse_unsupported_inputs(cuda):
     q = torch.zeros((1, 4, 8, 48), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="unsupported"):
         FA.flash_attention(q, q, q)                  # head_dim 48
     with pytest.raises(ValueError, match="bf16"):
         FA.flash_attention(q.float(), q, q)
+    pages = torch.zeros((3, 8, 1, 48), dtype=torch.bfloat16, device=cuda)
+    bt = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="unsupported"):
+        PA.paged_chunk_attention(q[0], pages, pages, bt, 0, 8)
+    with pytest.raises(ValueError, match="bf16"):
+        PA.paged_chunk_attention(q[0].float(), pages, pages, bt, 0, 8)
 
 
 @pytest.mark.cuda

@@ -203,6 +203,20 @@ CASES = {
         build=dict(extra_device_pages=12, page_size=8,
                    prefill_chunk_tokens=8),
         reqs=dict(n=3, plen=(20, 7, 13), new=(5, 6))),
+    # chunks through the paged chunk-prefill kernel, device tier only, at a
+    # finite interval: prompts of 1-3 chunks, partial last pages (chunks of
+    # 8 and 4 tokens only: the reference compiles once per chunk length)
+    "incremental_prefill": dict(
+        build=dict(extra_device_pages=12, page_size=8,
+                   prefill_chunk_tokens=8, incremental_prefill=True),
+        interval=2, reqs=dict(n=3, plen=(20, 12, 4), new=(5, 6))),
+    # cold prefixes spill to the host tier: chunks stream host pages into
+    # the slab and write the pages they fill back to the host pool
+    "incremental_host_tier": dict(
+        build=dict(extra_device_pages=2.5, host_pages=24, page_size=8,
+                   max_seq=32, prefill_chunk_tokens=8,
+                   incremental_prefill=True),
+        reqs=dict(n=4, plen=(12, 20), new=(6, 4))),
 }
 
 
@@ -251,3 +265,13 @@ def test_engine_lockstep(case):
         assert teng.scheduler.stats["chunked_prefill_iters"] > 0
     if case == "device_only":
         assert teng.interval == 2 and teng.kv.host.total_pages == 0
+    if case.startswith("incremental"):
+        # linear, not quadratic: every prompt token computed exactly once
+        total = sum(len(r.prompt) for r in teng.finished)
+        assert teng.prefill_tokens_computed == total
+        assert jeng.prefill_tokens_computed == total
+        assert teng.scheduler.stats["chunked_prefill_iters"] > 0
+    if case == "incremental_prefill":
+        assert teng.interval == 2 and teng.kv.host.total_pages == 0
+    if case == "incremental_host_tier":
+        assert teng.chunk_pages_streamed > 0

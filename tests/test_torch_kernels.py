@@ -4,9 +4,12 @@ The plain PyTorch versions (what the wrappers run on CPU tensors, and what
 ``chip_smoke.py`` holds the CUDA kernels against on the card) are compared
 with the Pallas kernels in interpret mode (through the reference's jitted
 ``kernels.ops`` entry points) and with both packages' dense
-oracles, over the cases of ``tests/test_kernels.py``. Tolerances are that
-file's: fp32 1e-5, bf16 2e-2. The CUDA kernels themselves run only on the
-card (``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
+oracles, over the cases of ``tests/test_kernels.py``. The chunk-prefill
+kernel, which the reference tests only through its engine, is held against
+the Pallas kernel in interpret mode and the port's dense oracle. Tolerances
+are ``tests/test_kernels.py``'s: fp32 1e-5, bf16 2e-2. The CUDA kernels
+themselves run only on the card (``tests/test_torch_cuda.py`` and
+``chip_smoke.py``).
 """
 from __future__ import annotations
 
@@ -20,10 +23,14 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention_pallas  # noqa: E402
+from repro.kernels.prefill_attention import (  # noqa: E402
+    paged_chunk_attention_pallas)
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.decode_attention import paged_decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
+from repro_torch.kernels.prefill_attention import (  # noqa: E402
+    paged_chunk_attention, paged_chunk_attention_plain)
 
 # the reference's dense oracles, jitted: one compile per shape instead of
 # one per primitive
@@ -31,6 +38,8 @@ jref_flash = jax.jit(jref.ref_flash_attention,
                      static_argnames=("causal", "window", "kv_len"))
 jref_paged = jax.jit(jref.ref_paged_decode_attention,
                      static_argnames=("window",))
+jpallas_chunk = jax.jit(paged_chunk_attention_pallas,
+                        static_argnames=("interpret",))
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -217,4 +226,112 @@ def test_paged_decode_reads_strided_pool_layer():
         want = jops.paged_decode_attention(
             jnp.asarray(q).astype(jnp.bfloat16), jpool[:, :, 0],
             jpool[:, :, 1], jnp.asarray(bt), jnp.asarray(cl), interpret=True)
+        _close(got, want, "bfloat16")
+
+
+# ---------------------------------------------------------------------------
+# Paged chunk-prefill attention
+# ---------------------------------------------------------------------------
+
+# (C, H, V, D, page, nb, npages, start, context_len, table edit): the table
+# edit writes out-of-range values past the context's last page
+CHUNK_CASES = {
+    "first_chunk_g2": (16, 4, 2, 32, 8, 4, 9, 0, 16, None),
+    "mid_prompt_g4": (8, 8, 2, 64, 16, 4, 9, 24, 32, None),
+    "partial_last_page_g1": (13, 4, 4, 32, 8, 5, 9, 16, 29, None),
+    "out_of_range_table": (8, 4, 2, 32, 8, 6, 9, 16, 24, "oob"),
+    # queries 20..31 over a context clamped to 25: keys 25..31 of the last
+    # live page stay visible (no separate length mask)
+    "context_below_chunk_end": (12, 4, 2, 32, 8, 4, 9, 20, 25, None),
+    "context_zero": (6, 4, 2, 32, 8, 3, 5, 0, 0, None),
+    "over_capacity": (8, 4, 2, 32, 8, 3, 5, 30, 500, None),
+    "single_token": (1, 8, 2, 64, 16, 4, 6, 40, 41, None),
+}
+
+
+def _chunk(c, h, vh, d, page, nb, npages, start, cl, edit, seed=4):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((c, h, d), np.float32)
+    kp = rng.standard_normal((npages, page, vh, d), np.float32)
+    vp = rng.standard_normal((npages, page, vh, d), np.float32)
+    bt = rng.permutation(npages)[:nb].astype(np.int32)
+    if edit == "oob":
+        live = -(-cl // page)
+        bt[live:] = 99_999
+        bt[-1] = -3
+    return q, kp, vp, bt, start, cl
+
+
+def _chunk_pallas(q, kp, vp, bt, start, cl, dtype):
+    jq, jk, jv = (_pair(x, dtype)[0] for x in (q, kp, vp))
+    return jpallas_chunk(jq, jk, jv, jnp.asarray(bt), jnp.int32(start),
+                         jnp.int32(cl), interpret=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(CHUNK_CASES))
+def test_paged_chunk_plain_matches_pallas_and_oracle(case, dtype):
+    q, kp, vp, bt, start, cl = _chunk(*CHUNK_CASES[case])
+    tq, tk, tv = (_pair(x, dtype)[1] for x in (q, kp, vp))
+    tb = torch.from_numpy(bt)
+    got = paged_chunk_attention(tq, tk, tv, tb, start, cl)   # plain version
+    assert got.shape == tq.shape and got.dtype == tq.dtype
+    _close(got, _chunk_pallas(q, kp, vp, bt, start, cl, dtype), dtype)
+    _close(got, tref.ref_paged_chunk_attention(tq, tk, tv, tb, start, cl)
+           .float().numpy(), dtype)
+    if cl == 0:
+        assert torch.count_nonzero(got) == 0
+
+
+def test_paged_chunk_clamped_context_keeps_last_page_visible():
+    """A query past a clamped ``context_len`` still sees the keys of the
+    last live page up to its own position: a ``kpos < context_len`` mask
+    would give a different answer."""
+    q, kp, vp, bt, start, cl = _chunk(*CHUNK_CASES["context_below_chunk_end"])
+    t = [torch.from_numpy(x) for x in (q, kp, vp, bt)]
+    got = paged_chunk_attention_plain(*t, start, cl)
+    # the same chunk over a context that ends at the chunk's end
+    assert torch.allclose(got, paged_chunk_attention_plain(*t, start, 32),
+                          rtol=1e-5, atol=1e-5)
+    # the same queries under a kpos < context_len mask
+    c, h, d = q.shape
+    vh = kp.shape[2]
+    k, v = (x[t[3].long()].reshape(-1, vh, d) for x in t[1:3])
+    sc = torch.einsum("cvgd,svd->cvgs", t[0].reshape(c, vh, h // vh, d),
+                      k) / d ** 0.5
+    kpos = torch.arange(k.shape[0])
+    qpos = start + torch.arange(c)
+    vis = (kpos[None] <= qpos[:, None]) & (kpos[None] < cl)
+    sc = sc.masked_fill(~vis[:, None, None], float("-inf"))
+    masked = torch.einsum("cvgs,svd->cvgd", torch.softmax(sc, -1),
+                          v).reshape(c, h, d)
+    assert torch.allclose(got[:5], masked[:5], rtol=1e-5, atol=1e-5)
+    assert not torch.allclose(got[-6:], masked[-6:], atol=1e-2)
+
+
+def test_paged_chunk_reads_strided_pool_layer():
+    """The engine passes one layer of its [frames, page, L, 2, vh, hd] pool
+    as strided K/V views and the chunk's q as a view of its projections;
+    the result equals the contiguous inputs' result and the Pallas
+    kernel's on the sliced copies."""
+    rng = np.random.default_rng(6)
+    frames, page, layers, vh, d, h, c, nb = 9, 8, 3, 2, 32, 8, 10, 5
+    pool = rng.standard_normal((frames, page, layers, 2, vh, d), np.float32)
+    qs = rng.standard_normal((1, c, h, d), np.float32)
+    bt = rng.permutation(frames - 1)[:nb].astype(np.int32)
+    bt[3:] = frames - 1                        # null-frame padding
+    start, cl = 14, 24
+    tpool = torch.from_numpy(pool).to(torch.bfloat16)
+    tq = torch.from_numpy(qs).to(torch.bfloat16)[0]
+    for layer in range(layers):
+        kv_l = tpool[:, :, layer]
+        kp, vp = kv_l[:, :, 0], kv_l[:, :, 1]
+        assert not kp.is_contiguous()
+        got = paged_chunk_attention(tq, kp, vp, torch.from_numpy(bt), start,
+                                    cl)
+        dense = paged_chunk_attention(tq, kp.contiguous(), vp.contiguous(),
+                                      torch.from_numpy(bt), start, cl)
+        assert torch.equal(got, dense)
+        want = _chunk_pallas(qs[0], pool[:, :, layer, 0], pool[:, :, layer, 1],
+                             bt, start, cl, "bfloat16")
         _close(got, want, "bfloat16")

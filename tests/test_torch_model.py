@@ -175,6 +175,92 @@ def test_apply_block_decode_paged(models):
     _close(tpool, jpool)
 
 
+def _chunk_inputs(cfg, vkv, c=12, start=13, page=8, nb=5, seed=7):
+    """A chunk of ``c`` tokens at ``start`` over a shuffled block table whose
+    last entry pads past the context with the null frame."""
+    rng = np.random.default_rng(seed)
+    frames = nb + 3
+    pool = rng.standard_normal(
+        (frames, page, cfg.num_layers, 2, vkv, cfg.resolved_head_dim),
+        np.float32) * 0.5
+    bt = rng.permutation(frames - 1)[:nb].astype(np.int32)
+    end = start + c
+    bt[-(-end // page):] = frames - 1
+    toks = np.arange(start, end)
+    wf = bt[toks // page]
+    wo = (toks % page).astype(np.int32)
+    x_toks = rng.integers(0, cfg.vocab_size, c).astype(np.int32)
+    return x_toks, start, pool, bt, end, wf, wo
+
+
+def test_apply_block_prefill_paged(models):
+    jm, jp, tm, tp = models
+    cfg, jcfg = tm.cfg, jm.cfg
+    _, start, pool, bt, end, wf, wo = _chunk_inputs(cfg, tm.virtual_kv)
+    c = end - start
+    x = np.random.default_rng(8).standard_normal((1, c, cfg.d_model),
+                                                 np.float32)
+    layer = 1
+    jblk = jax.tree.map(lambda a: a[layer], jp["blocks"][0])
+    tblk = T.unit_slice(tp["blocks"][0], layer)
+    posm = (start + np.arange(c, dtype=np.int32))[None]
+    jx, jpool = jax.jit(lambda p, x, pool: JT.apply_block_prefill_paged(
+        jcfg, jcfg.pattern[0], p, x, jnp.asarray(posm), pool, layer,
+        jnp.asarray(bt), jnp.int32(end), jnp.asarray(wf), jnp.asarray(wo),
+        jm.virtual_kv, True))(
+        jblk, jnp.asarray(x).astype(jnp.bfloat16),
+        jnp.asarray(pool).astype(jnp.bfloat16))
+    tpool = torch.from_numpy(pool).to(torch.bfloat16)
+    tx, tpool2 = T.apply_block_prefill_paged(
+        cfg, cfg.pattern[0], tblk, torch.from_numpy(x).to(torch.bfloat16),
+        start, tpool, layer, torch.from_numpy(bt), end,
+        torch.from_numpy(wf).long(), torch.from_numpy(wo).long(),
+        tm.virtual_kv)
+    assert tpool2 is tpool                             # updated in place
+    _close(tx, jx)
+    _close(tpool, jpool)
+    # the chunk's K/V landed where the table says, in this layer only
+    before = torch.from_numpy(pool).to(torch.bfloat16)
+    changed = (tpool != before).flatten(4).any(-1)     # [frames,page,L,2]
+    assert changed[:, :, layer].sum() > 0
+    assert not changed[:, :, :layer].any() and \
+        not changed[:, :, layer + 1:].any()
+    wrote = torch.zeros_like(changed[:, :, layer, 0])
+    wrote[torch.from_numpy(wf).long(), torch.from_numpy(wo).long()] = True
+    assert not (changed[:, :, layer].any(-1) & ~wrote).any()
+
+
+@pytest.mark.parametrize("interval", [2, NO_OFFLOAD])
+def test_runtime_paged_prefill_chunk_matches_reference(models, interval):
+    """The runtime's chunk step against the reference's on the same pool:
+    last-position logits and the whole pool at the DualEngine tolerance,
+    and offloading leaves the port's chunk step bitwise unchanged."""
+    jm, jp, tm, tp = models
+    toks, start, pool, bt, end, wf, wo = _chunk_inputs(tm.cfg, tm.virtual_kv)
+    _, r = JT.pattern_info(jm.cfg)
+    jrt = JRuntime(model=jm, plan=JPlan(r, interval))
+    jl, jpool = jax.jit(jrt.paged_prefill_chunk)(
+        jsplit(jp, jrt.plan), jnp.asarray(toks), jnp.int32(start),
+        jnp.asarray(pool).astype(jnp.bfloat16), jnp.asarray(bt),
+        jnp.int32(end), jnp.asarray(wf), jnp.asarray(wo))
+    out = {}
+    for iv in {interval, NO_OFFLOAD}:
+        trt = OffloadRuntime(tm, OffloadPlan(r, iv), device="cpu")
+        tpool = torch.from_numpy(pool).to(torch.bfloat16)
+        tl, tpool2 = trt.paged_prefill_chunk(
+            trt.place(split_model_params(tp, trt.plan)),
+            torch.from_numpy(toks), start, tpool, torch.from_numpy(bt), end,
+            torch.from_numpy(wf), torch.from_numpy(wo))
+        assert tpool2 is tpool
+        out[iv] = (tl, tpool)
+    tl, tpool = out[interval]
+    assert tl.shape == (1, tm.cfg.padded_vocab())
+    _close(tl, jl)
+    _close(tpool, jpool)
+    assert torch.equal(tl, out[NO_OFFLOAD][0])
+    assert torch.equal(tpool, out[NO_OFFLOAD][1])
+
+
 def test_prefill_and_decode_logits(models):
     jm, jp, tm, tp = models
     b, s, steps = 2, 10, 3

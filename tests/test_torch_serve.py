@@ -1,5 +1,6 @@
 """The port's serve CLI on the CPU: same summary keys as the reference,
-the paged decode path, and the flags of paths not ported yet refused."""
+the paged decode path, incremental chunked prefill, and the flags of paths
+not ported yet refused."""
 from __future__ import annotations
 
 import pytest
@@ -42,7 +43,7 @@ def test_metrics_out_audits_clean(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", [
     ["--fleet", "2"], ["--peer"], ["--disagg"], ["--disk-kv-gb", "0.001"],
-    ["--async-data-plane"], ["--incremental-prefill"],
+    ["--async-data-plane"], ["--prefill-instances", "2"],
     ["--router", "round_robin"], ["--disk-backing-path", "x"],
 ])
 def test_unported_flags_refused(flag, capsys):
@@ -74,8 +75,7 @@ def test_profile_trace_summary_unions_device_spans():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("disk_kv_bytes", 1e6), ("async_data_plane", True),
-    ("incremental_prefill", True), ("role", "prefill"),
+    ("disk_kv_bytes", 1e6), ("async_data_plane", True), ("role", "prefill"),
 ])
 def test_engine_refuses_unported_settings(field, value):
     from repro_torch.configs import get_config
@@ -89,17 +89,103 @@ def test_engine_refuses_unported_settings(field, value):
                            ecfg, [0.01], device="cpu")
 
 
-def test_chunk_prefill_runtime_refused():
+def test_engine_refuses_incremental_prefill_with_prefix_dedup():
+    """The reference's own limit: deduped chunk pages would need
+    skip-write/COW handling inside the chunk path."""
     from repro_torch.configs import get_config
     from repro_torch.configs.reduced import reduce_config
-    from repro_torch.core.interval import OffloadPlan
-    from repro_torch.core.memory_manager import OffloadRuntime
-    from repro_torch.models.model import build_model
+    from repro_torch.core.hardware import A10
+    from repro_torch.serving.engine import EngineConfig
 
-    rt = OffloadRuntime(build_model(reduce_config(get_config("qwen2.5-3b"))),
-                        OffloadPlan(2, 1), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue B item 3"):
-        rt.paged_prefill_chunk()
+    ecfg = EngineConfig(max_batch=2, max_seq=32, prefill_chunk_tokens=16,
+                        incremental_prefill=True, prefix_dedup=True)
+    with pytest.raises(NotImplementedError, match="prefix dedup"):
+        serve.build_engine("x", reduce_config(get_config("qwen2.5-3b")), A10,
+                           ecfg, [0.01], device="cpu")
+
+
+def test_cli_rejects_incremental_prefill_with_prefix_dedup(capsys):
+    with pytest.raises(SystemExit) as exc:
+        serve.main(ARGS + ["--prefill-chunk-tokens", "16",
+                           "--incremental-prefill", "--prefix-dedup"])
+    assert exc.value.code == 2
+    assert "--prefix-dedup" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("edit", ["sliding_window", "recurrent_mixer"])
+def test_chunk_block_refuses_what_the_kernel_lacks(edit):
+    """The chunk kernel has no window mask and no recurrent state: the
+    block refuses both before touching the pool, as the reference does."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import BlockSpec
+    from repro_torch.configs.reduced import reduce_config
+    from repro_torch.models import transformer as T
+
+    cfg = reduce_config(get_config("qwen2.5-3b"))
+    blk = cfg.pattern[0]
+    if edit == "sliding_window":
+        cfg = dataclasses.replace(cfg, sliding_window=8)
+    else:
+        blk = BlockSpec(mixer="mamba")
+    pool = torch.zeros((2, 8, cfg.num_layers, 2, 2, 4))
+    x = torch.zeros((1, 3, cfg.d_model))
+    with pytest.raises(NotImplementedError, match="paged chunk prefill"):
+        T.apply_block_prefill_paged(
+            cfg, blk, {}, x, 0, pool, 0, torch.zeros(2, dtype=torch.int32),
+            3, torch.zeros(3, dtype=torch.long),
+            torch.arange(3), 2)
+    assert torch.count_nonzero(pool) == 0
+
+
+def test_incremental_chunk_without_its_pages_falls_back():
+    """A chunk whose pages are not all allocated leaves the incremental
+    path (None: the engine recomputes it instead, as the reference does)
+    having computed, timed and written nothing."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduce_config
+    from repro_torch.core.hardware import A10
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.scheduler import PrefillChunk
+
+    ecfg = EngineConfig(max_batch=2, max_seq=32, page_size=8,
+                        hbm_budget_bytes=1e9, prefill_chunk_tokens=8,
+                        incremental_prefill=True)
+    eng = serve.build_engine("x", reduce_config(get_config("qwen2.5-3b")),
+                             A10, ecfg, [0.01], device="cpu")
+    req = Request(rid=0, prompt=np.arange(20, dtype=np.int32),
+                  max_new_tokens=2, ttft_slo_s=1.0, tpot_slo_s=1.0)
+    assert eng.kv.alloc(0, 8) is not None          # one page of the three
+    pool = eng.pool.clone()
+    assert eng._run_chunk_incremental(PrefillChunk(req, 0, 8, 16)) is None
+    assert eng.prefill_tokens_computed == 0 and not eng.chunk_ms
+    assert torch.equal(eng.pool, pool)
+
+
+def test_incremental_prefill_cli_matches_reference(capsys):
+    """``--prefill-chunk-tokens 16 --incremental-prefill`` with a host tier
+    through the port's CLI: the same summary as the reference's CLI on the
+    modeled clock, with the chunked prefill engaged."""
+    pytest.importorskip("jax")
+    from repro.launch import serve as ref_serve
+
+    argv = ["--max-seq", "64", "--requests", "4", "--host-kv-gb", "0.0001",
+            "--prefill-chunk-tokens", "16", "--incremental-prefill"]
+    got = _summary(serve.main, ["--device", "cpu"] + argv, capsys)
+    want = _summary(ref_serve.main, argv, capsys)
+    assert got["data_plane"]["incremental_prefill"]
+    assert got["finished"] > 0 and got["chunked_prefill_iters"] > 0
+    for key in ("finished", "rejected", "tokens", "wall_modeled_s",
+                "link_bytes", "host_kv_peak_pages", "streamed_pages_peak",
+                "chunked_prefill_iters"):
+        assert got[key] == want[key], key
 
 
 def test_engine_holds_the_current_intervals_placement():
