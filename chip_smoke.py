@@ -8,9 +8,11 @@ Phases, each fatal on failure:
    sources in ``src/repro_torch/kernels/csrc`` (one nvcc per source, in
    parallel).
 2. Kernel checks at the serving path's shapes: each kernel against its plain
-   PyTorch version on the same inputs (bf16 tolerance), timed with CUDA
-   events beside its bound, its plain version and, for flash attention,
-   ``scaled_dot_product_attention``.
+   PyTorch version on the same inputs (bf16 tolerance) over its edge cases,
+   two launches of the flash and decode kernels bitwise equal, and each row
+   of a batch-8 decode bitwise equal to its request alone; then each kernel
+   timed with CUDA events beside its bound, its plain version and, for
+   flash attention, ``scaled_dot_product_attention``.
 3. Full-width qwen2.5-3b (random weights, seed 0) served by the port's
    engine with online interval autotuning and a host KV tier: every request
    finishes at a finite offloading interval, the trace audit is clean, the
@@ -129,6 +131,7 @@ def check_decode(flush: torch.Tensor) -> dict:
     cl = torch.randint(1, nb * page + 1, (b,), generator=gen, device=dev,
                        dtype=torch.int32)
     errs = []
+    span = DA.PAGES_PER_SPLIT * page
     cases = {"main": (q, bt, cl, 0)}
     bt_pad = bt.clone()
     bt_pad[0, 2:] = 99_999          # out-of-range entries past the context
@@ -138,10 +141,35 @@ def check_decode(flush: torch.Tensor) -> dict:
     cases["batch1"] = (q[:1], bt[:1], torch.tensor([17], dtype=torch.int32,
                                                    device=dev), 0)
     cases["window"] = (q, bt, cl, 100)
+    # contexts at and around one split's span, one token and none
+    edges = torch.tensor([span, span - 1, span + 1, 1, 0, nb * page,
+                          3 * span + 5, 2 * span], dtype=torch.int32,
+                         device=dev)
+    cases["split_edges"] = (q, bt_pad, edges, 0)
+    cases["window_in_split"] = (q, bt, edges, 40)
+    cases["g1"] = (q[:, :vh], bt, cl, 0)
+    cases["g4"] = (q[:, :4 * vh], bt, cl, 0)
     for name, (qq, tt, ll, win) in cases.items():
         got = DA.paged_decode_attention(qq, kp, vp, tt, ll, window=win)
         want = DA.paged_decode_attention_plain(qq, kp, vp, tt, ll, window=win)
         errs.append(max_err(got, want, f"paged_decode[{name}]"))
+        zero_rows = (ll.clamp(0, nb * page) == 0).nonzero().flatten()
+        if torch.count_nonzero(got[zero_rows]):
+            raise AssertionError(f"paged_decode[{name}]: a cl = 0 row is "
+                                 f"not all zeros")
+    # the output bits repeat, and do not depend on the rest of the batch
+    for win in (0, 100):
+        first = DA.paged_decode_attention(q, kp, vp, bt, cl, window=win)
+        if not torch.equal(first, DA.paged_decode_attention(
+                q, kp, vp, bt, cl, window=win)):
+            raise AssertionError("paged_decode: two launches differ")
+        for i in range(b):
+            alone = DA.paged_decode_attention(
+                q[i:i + 1], kp, vp, bt[i:i + 1], cl[i:i + 1], window=win)
+            if not torch.equal(alone[0], first[i]):
+                raise AssertionError(f"paged_decode: row {i} alone differs "
+                                     f"from its row in the batch")
+    checks = list(cases) + ["bitwise_repeat", "batch_independent"]
     ms = time_ms(lambda: DA.paged_decode_attention(q, kp, vp, bt, cl),
                  flush=flush)
     plain_ms = time_ms(lambda: DA.paged_decode_attention_plain(
@@ -154,14 +182,15 @@ def check_decode(flush: torch.Tensor) -> dict:
     bound_ms, bound_by = max((nbytes / HBM_BYTES_S * 1e3, "bytes"),
                              (flops / BF16_FLOPS_S * 1e3, "operations"))
     log(f"paged_decode: B={b} H={h} V={vh} D={d} page={page} nb={nb} "
-        f"tokens={tokens} checks={list(cases)} max_abs_err={max(errs):.3g} "
+        f"splits={-(-nb // DA.PAGES_PER_SPLIT)} tokens={tokens} "
+        f"checks={checks} max_abs_err={max(errs):.3g} "
         f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f}")
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:71",
             "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "check": "pass", "checks": list(cases)}
+            "check": "pass", "checks": checks}
 
 
 def check_flash(flush: torch.Tensor) -> dict:
@@ -180,20 +209,25 @@ def check_flash(flush: torch.Tensor) -> dict:
     v = torch.randn((b, s, vh, d), generator=gen, device=dev).to(
         torch.bfloat16).transpose(1, 2)
     errs = []
-    cases = {"causal": {}, "window": {"window": 200},
-             "kv_len": {"causal": False, "kv_len": 700}}
-    for name, kw in cases.items():
-        got = FA.flash_attention(q, k, v, **kw)
-        want = FA.flash_attention_plain(q, k, v, **kw)
+    # (q, k, v, keywords): the serving shape first; strided [B,S,H,D] views
+    # throughout, ragged lengths, head_dim 16-64 as D-slices of the same
+    cases = {"causal": (q, k, v, {}), "window": (q, k, v, {"window": 200}),
+             "kv_len": (q, k, v, {"causal": False, "kv_len": 700}),
+             "offset": (q[:, :, :77], k, v, {}),
+             "pos_offset": (q[:, :, :77], k, v, {"pos_offset": -300}),
+             "ragged": (q[:, :, :200], k[:, :, :200], v[:, :, :200], {}),
+             "causal_kv_len": (q[:, :, :333], k, v, {"kv_len": 901,
+                                                     "window": 150})}
+    for dd in (16, 32, 64):
+        cases[f"d{dd}"] = (q[:, :, :259, :dd], k[:, :, :259, :dd],
+                           v[:, :, :259, :dd], {"window": 70})
+    for name, (qq, kk, vv, kw) in cases.items():
+        got = FA.flash_attention(qq, kk, vv, **kw)
+        want = FA.flash_attention_plain(qq, kk, vv, **kw)
         errs.append(max_err(got, want, f"flash[{name}]"))
-    # a short non-tile-multiple prompt with a decode-style offset, and
-    # ragged query and key lengths
-    qs = q[:, :, :77]
-    errs.append(max_err(FA.flash_attention(qs, k, v),
-                        FA.flash_attention_plain(qs, k, v), "flash[offset]"))
-    qr, kr, vr = q[:, :, :200], k[:, :, :200], v[:, :, :200]
-    errs.append(max_err(FA.flash_attention(qr, kr, vr),
-                        FA.flash_attention_plain(qr, kr, vr), "flash[ragged]"))
+    if not torch.equal(FA.flash_attention(q, k, v), FA.flash_attention(q, k, v)):
+        raise AssertionError("flash: two launches differ")
+    checks = list(cases) + ["bitwise_repeat"]
     ms = time_ms(lambda: FA.flash_attention(q, k, v), flush=flush)
     plain_ms = time_ms(lambda: FA.flash_attention_plain(q, k, v))
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
@@ -203,17 +237,16 @@ def check_flash(flush: torch.Tensor) -> dict:
     nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
     bound_ms, bound_by = max((nbytes / HBM_BYTES_S * 1e3, "bytes"),
                              (flops / BF16_FLOPS_S * 1e3, "operations"))
-    log(f"flash: B={b} H={h} V={vh} S={s} D={d} causal "
-        f"checks={list(cases) + ['offset', 'ragged']} "
+    log(f"flash: B={b} H={h} V={vh} S={s} D={d} causal checks={checks} "
         f"max_abs_err={max(errs):.3g} "
         f"ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
-        f"bound_ms={bound_ms:.5f}")
+        f"(kernel / sdpa {ms / lib_ms:.3f}) bound_ms={bound_ms:.5f}")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:79",
             "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-            "check": "pass", "checks": list(cases) + ["offset", "ragged"]}
+            "check": "pass", "checks": checks}
 
 
 def check_chunk(flush: torch.Tensor) -> dict:

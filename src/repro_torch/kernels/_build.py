@@ -92,6 +92,18 @@ def load(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
+def require_vector_aligned(name: str, t) -> None:
+    """Raise unless 16-byte vector loads can read every row of tensor
+    ``t``: its data pointer 16-byte aligned and every stride but the last
+    (unit) one a whole number of 16-byte pieces."""
+    if t.data_ptr() % 16 or any(s * t.element_size() % 16
+                                for s in t.stride()[:-1]):
+        raise ValueError(f"{name}: the kernel's 16-byte loads need a 16-byte "
+                         f"aligned base and strides in multiples of 16 "
+                         f"bytes, got strides {t.stride()} at offset "
+                         f"{t.data_ptr() % 16} mod 16")
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")

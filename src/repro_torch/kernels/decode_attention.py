@@ -3,13 +3,17 @@ version.
 
 Replaces ``repro/kernels/decode_attention.py: paged_decode_attention_pallas``.
 The CUDA kernel (``csrc/decode_attention.cu``) is bandwidth-bound: one launch
-reads about ``B * cl * V * D * 2 * 2`` bytes of KV. One thread block per
-(request, KV head) serves all ``H / V`` query heads of that KV head from one
-read of each page, and reads the pages in place through the pool's strides.
+reads about ``B * cl * V * D * 2 * 2`` bytes of KV. It splits each request's
+KV into spans of ``PAGES_PER_SPLIT`` table pages, one thread block per
+(request, KV head, span), so enough blocks read at once; each block serves
+all ``H / V`` query heads of its KV head from one read of each page, read in
+place through the pool's strides in 16-byte pieces, and writes an fp32
+partial softmax to a scratch this wrapper allocates. A second kernel,
+launched from the same C entry point, merges the spans in order.
 
 On a CPU tensor the wrapper runs the plain version, which repeats the
-kernel's arithmetic (fp32 online softmax over pages) in PyTorch; on a CUDA
-tensor it launches the kernel or raises.
+Pallas kernel's arithmetic (fp32 online softmax over pages) in PyTorch; on a
+CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -21,11 +25,41 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
+# table pages per split: kPagesPerSplit of csrc/decode_attention.cu, which
+# the wrapper checks against the built library
+PAGES_PER_SPLIT = 4
+# D / 8 lanes split each key row, so D / 8 is a power of two up to a warp
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 
 # kernel launches since the last reset (the main-path evidence)
 launches = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
+_launch_fn = None
+
+
+def split_geometry(b: int, h: int, vh: int, d: int,
+                   nb: int) -> tuple[int, dict[str, tuple[int, ...]]]:
+    """The split kernel's geometry for one launch: the number of splits S
+    (spans of ``PAGES_PER_SPLIT`` table pages) and the fp32 partials it
+    writes, laid out one after another in one scratch buffer: ``acc``
+    ``(B, V, S, g, D)``, then ``m`` and ``l`` ``(B, V, S, g)``."""
+    splits = -(-nb // PAGES_PER_SPLIT)
+    rows = (b, vh, splits, h // vh)
+    return splits, {"acc": rows + (d,), "m": rows, "l": rows}
+
+
+def _kernel():
+    global _launch_fn
+    if _launch_fn is None:
+        lib = _build.load("decode_attention")
+        if lib.paged_decode_pages_per_split() != PAGES_PER_SPLIT:
+            raise RuntimeError("decode_attention.cu splits KV differently "
+                               "from the wrapper's PAGES_PER_SPLIT")
+        fn = lib.paged_decode_attention_bf16
+        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        _launch_fn = fn
+    return _launch_fn
 
 
 def paged_decode_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
@@ -79,8 +113,10 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                                 block_tables: torch.Tensor,
                                 context_lens: torch.Tensor, *,
                                 window: int = 0) -> torch.Tensor:
-    """Launch the Hopper kernel. Pages may be strided views (the engine
-    passes a layer slice of its 6-D pool); only D must be unit-stride."""
+    """Launch the Hopper kernels. Pages may be strided views (the engine
+    passes a layer slice of its 6-D pool); only D must be unit-stride, and
+    the 16-byte loads need the pages 16-byte aligned with strides in
+    multiples of 8 elements."""
     global launches
     b, h, d = q.shape
     npages, page, vh, dk = k_pages.shape
@@ -90,13 +126,19 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
             raise ValueError(f"{name}: need a bf16 CUDA tensor with unit "
                              f"stride along head_dim, got {t.dtype} "
                              f"{t.device} strides {t.stride()}")
+        if t is not q:
+            _build.require_vector_aligned(name, t)
     if v_pages.shape != k_pages.shape or dk != d or h % vh:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} k "
                          f"{tuple(k_pages.shape)} v {tuple(v_pages.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"unsupported head_dim {d} (need one of "
+                         f"{HEAD_DIMS})")
     if block_tables.shape != (b, nb) or context_lens.shape != (b,):
         raise ValueError(f"block_tables {tuple(block_tables.shape)} / "
                          f"context_lens {tuple(context_lens.shape)} do not "
                          f"match batch {b}")
+    parts = split_geometry(b, h, vh, d, nb)[1]
     ints = (b, h, vh, d, page, nb, npages, window, q.stride(0), q.stride(1),
             *k_pages.stride()[:3], *v_pages.stride()[:3])
     if max(ints) >= 2**31:
@@ -104,14 +146,14 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     bt = block_tables.to(device=q.device, dtype=torch.int32).contiguous()
     cl = context_lens.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
-    if b == 0:
-        return out
-    lib = _build.load("decode_attention")
-    fn = lib.paged_decode_attention_bf16
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             bt.data_ptr(), cl.data_ptr(), out.data_ptr(), *ints,
-             torch.cuda.current_stream(q.device).cuda_stream)
+    if b == 0 or nb == 0:           # no batch, or no page: all rows idle
+        return out.zero_()
+    part = torch.empty(sum(math.prod(s) for s in parts.values()),
+                       dtype=torch.float32, device=q.device)
+    err = _kernel()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                    bt.data_ptr(), cl.data_ptr(), part.data_ptr(),
+                    out.data_ptr(), *ints,
+                    torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_decode_attention launch")
     launches += 1
     return out

@@ -3,13 +3,18 @@ plain version.
 
 Replaces ``repro/kernels/flash_attention.py: flash_attention_pallas``. The
 CUDA kernel (``csrc/flash_attention.cu``) is compute-bound for long prompts:
-about ``2 * B * H * Sq * Sk * D`` FLOPs under the causal mask. One thread
-block per (query tile, head, batch row) keeps the running softmax state on
-chip and skips KV tiles the masks leave empty, as the Pallas kernel does.
+about ``2 * B * H * Sq * Sk * D`` FLOPs under the causal mask, which it runs
+on the tensor cores (``mma.sync`` bf16 -> fp32). One block of 4 warps per
+(query tile of 64 rows, head, batch row) keeps its query fragments and the
+running softmax state in registers, streams 64-key tiles through a
+three-stage shared ring, and skips KV tiles the masks leave empty, as
+the Pallas kernel does. It rounds the probabilities to bf16 before the PV
+product, where the Pallas kernel keeps them in fp32.
 
 On a CPU tensor the wrapper runs the plain version, which repeats the
-kernel's arithmetic (fp32 online softmax over 64-key tiles, queries scaled
-in fp32) in PyTorch; on a CUDA tensor it launches the kernel or raises.
+Pallas kernel's arithmetic (fp32 online softmax over 64-key tiles, queries
+scaled in fp32) in PyTorch; on a CUDA tensor it launches the kernel or
+raises.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
+BLOCK_Q = 64
 BLOCK_K = 64
 HEAD_DIMS = (16, 32, 64, 128)
 
@@ -81,8 +87,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          pos_offset: int = 0) -> torch.Tensor:
     """Launch the Hopper kernel. Inputs may be strided views (the prefill
     passes ``[B,S,H,D]`` projections transposed to ``[B,H,S,D]``); only D
-    must be unit-stride. The output is allocated ``[B,Sq,H,D]``-contiguous
-    and returned as its ``[B,H,Sq,D]`` view."""
+    must be unit-stride, and the 16-byte copies need each input 16-byte
+    aligned with strides in multiples of 8 elements. The output is
+    allocated ``[B,Sq,H,D]``-contiguous and returned as its ``[B,H,Sq,D]``
+    view."""
     global launches
     b, h, sq, d = q.shape
     vh, sk = k.shape[1], k.shape[2]
@@ -91,6 +99,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name}: need a bf16 CUDA tensor with unit "
                              f"stride along head_dim, got {t.dtype} "
                              f"{t.device} strides {t.stride()}")
+        _build.require_vector_aligned(name, t)
     if d not in HEAD_DIMS or k.shape[3] != d or v.shape != k.shape \
             or h % vh:
         raise ValueError(f"unsupported shapes q {tuple(q.shape)} k "
@@ -99,6 +108,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_len = sk if kv_len is None else kv_len
     if not 0 <= kv_len <= sk:
         raise ValueError(f"kv_len {kv_len} outside [0, {sk}]")
+    if max(b, -(-sq // BLOCK_Q)) > 65535:
+        raise ValueError(f"batch {b} or {sq} queries beyond the kernel's grid")
     out = torch.empty((b, sq, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     if out.numel() == 0:

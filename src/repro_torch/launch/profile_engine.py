@@ -91,6 +91,10 @@ def _union_us(spans: list[tuple[float, float]]) -> float:
     return total
 
 
+# the paged decode attention's two kernels (csrc/decode_attention.cu)
+PAGED_DECODE_KERNELS = ("decode_split_kernel", "decode_combine_kernel")
+
+
 def trace_summary(trace: dict, wall_us: float, top: int = 8) -> dict:
     """Device coverage of a Chrome trace exported by ``torch.profiler``."""
     kernels, copies = [], []
@@ -105,6 +109,8 @@ def trace_summary(trace: dict, wall_us: float, top: int = 8) -> dict:
             by_name[ev["name"]][0] += float(ev["dur"])
             by_name[ev["name"]][1] += 1
     busy = _union_us(kernels + copies)
+    decode_us = sum(t for n, (t, _) in by_name.items()
+                    if any(k in n for k in PAGED_DECODE_KERNELS))
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return {
         "wall_ms": wall_us / 1e3,
@@ -116,6 +122,9 @@ def trace_summary(trace: dict, wall_us: float, top: int = 8) -> dict:
                                    - busy) / 1e3,
         "idle_share": max(0.0, 1.0 - busy / wall_us),
         "kernel_launches": len(kernels),
+        "paged_decode_ms": decode_us / 1e3,
+        "paged_decode_share_of_kernel_time": decode_us / max(
+            sum(t for t, _ in by_name.values()), 1e-9),
         "top_kernels": [{"name": n[:90], "ms": t / 1e3, "count": c}
                         for n, (t, c) in ranked],
     }

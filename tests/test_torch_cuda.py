@@ -52,11 +52,71 @@ def test_decode_kernel_matches_plain(cuda, b, h, vh, d, page, nb, window):
     torch.testing.assert_close(got.float(), want.float(), **TOL)
 
 
+def _decode_inputs(rng, dev, b, h, vh, d, page, nb, layers=3):
+    """A strided layer slice of a [frames, page, L, 2, vh, d] pool, the
+    queries and a table of distinct frames."""
+    frames = b * nb + 1
+    pool = _randn(rng, frames, page, layers, 2, vh, d, dev=dev)
+    kp, vp = pool[:, :, 1, 0], pool[:, :, 1, 1]
+    q = _randn(rng, b, h, d, dev=dev)
+    bt = rng.permutation(frames)[:b * nb].reshape(b, nb).astype(np.int32)
+    return q, kp, vp, bt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,vh", [(8, 8), (16, 4), (16, 2)])   # g 1, 4, 8
+@pytest.mark.parametrize("window", [0, 50])
+def test_decode_kernel_split_edges(cuda, h, vh, window):
+    """Contexts at and around one split's span (P pages), one token and
+    none, table entries out of range and negative past the context, and a
+    window whose edge falls inside a split."""
+    rng = np.random.default_rng(5)
+    page, d, nb = 16, 64, 12
+    span = DA.PAGES_PER_SPLIT * page
+    lens = [span, span - 1, span + 1, 1, 0, 2 * span + 7, nb * page,
+            nb * page + 40]
+    q, kp, vp, bt = _decode_inputs(rng, cuda, len(lens), h, vh, d, page, nb)
+    bt[0, DA.PAGES_PER_SPLIT:] = 99_999
+    bt[1, DA.PAGES_PER_SPLIT:] = -3
+    bt, cl = (torch.from_numpy(x).to(cuda)
+              for x in (bt, np.array(lens, np.int32)))
+    got = DA.paged_decode_attention(q, kp, vp, bt, cl, window=window)
+    want = DA.paged_decode_attention_plain(q, kp, vp, bt, cl, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+    assert torch.count_nonzero(got[4]) == 0                # cl = 0
+
+
+@pytest.mark.cuda
+def test_decode_kernel_bitwise_repeatable_and_batch_independent(cuda):
+    """Two launches on the same inputs give the same bits, and each row of
+    a batch-8 decode equals, bitwise, its request run alone at batch 1."""
+    rng = np.random.default_rng(6)
+    q, kp, vp, bt = _decode_inputs(rng, cuda, 8, 16, 2, 128, 16, 64,
+                                   layers=4)
+    bt = torch.from_numpy(bt).to(cuda)
+    cl = torch.from_numpy(rng.integers(0, 64 * 16 + 1, 8).astype(np.int32)
+                          ).to(cuda)
+    for window in (0, 100):
+        first = DA.paged_decode_attention(q, kp, vp, bt, cl, window=window)
+        again = DA.paged_decode_attention(q, kp, vp, bt, cl, window=window)
+        assert torch.equal(first, again)
+        for i in range(8):
+            alone = DA.paged_decode_attention(q[i:i + 1], kp, vp,
+                                              bt[i:i + 1], cl[i:i + 1],
+                                              window=window)
+            assert torch.equal(alone[0], first[i]), (window, i)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,vh,sq,sk,d,kw", [
     (1, 8, 2, 96, 96, 64, {}), (2, 4, 1, 33, 130, 16, {}),
     (1, 4, 4, 128, 128, 32, {"window": 24}),
     (1, 4, 2, 64, 100, 128, {"causal": False, "kv_len": 77}),
+    (1, 4, 2, 200, 200, 128, {}),                   # ragged, 4 query tiles
+    (2, 4, 2, 70, 150, 16, {"window": 37}),         # window edge mid-tile
+    (1, 8, 8, 65, 193, 32, {"causal": False, "kv_len": 129}),
+    (1, 4, 1, 40, 300, 64, {"pos_offset": -100}),   # decode-style offset
+    (1, 4, 2, 130, 130, 128, {"kv_len": 90}),       # causal with kv_len
 ])
 def test_flash_kernel_matches_plain(cuda, b, h, vh, sq, sk, d, kw):
     rng = np.random.default_rng(1)
@@ -68,6 +128,36 @@ def test_flash_kernel_matches_plain(cuda, b, h, vh, sq, sk, d, kw):
     assert FA.launches == before + 1
     want = FA.flash_attention_plain(q, k, v, **kw)
     torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_kernel_reads_strided_projections(cuda, d):
+    """The prefill passes [B,S,H,D] projections viewed as [B,H,S,D]; the
+    kernel reads them through their strides, ragged lengths included."""
+    rng = np.random.default_rng(3)
+    b, h, vh, s = 2, 8, 2, 77
+    q = _randn(rng, b, s, h, d, dev=cuda).transpose(1, 2)
+    k = _randn(rng, b, s, vh, d, dev=cuda).transpose(1, 2)
+    v = _randn(rng, b, s, vh, d, dev=cuda).transpose(1, 2)
+    assert not q.is_contiguous()
+    for kw in ({}, {"window": 20}):
+        got = FA.flash_attention(q, k, v, **kw)
+        want = FA.flash_attention_plain(q, k, v, **kw)
+        torch.testing.assert_close(got.float(), want.float(), **TOL)
+        dense = FA.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), **kw)
+        assert torch.equal(got, dense)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_is_bitwise_repeatable(cuda):
+    rng = np.random.default_rng(4)
+    q = _randn(rng, 1, 16, 300, 128, dev=cuda)
+    k = _randn(rng, 1, 2, 300, 128, dev=cuda)
+    v = _randn(rng, 1, 2, 300, 128, dev=cuda)
+    first = FA.flash_attention(q, k, v)
+    assert torch.equal(first, FA.flash_attention(q, k, v))
 
 
 @pytest.mark.cuda
@@ -109,6 +199,21 @@ def test_kernels_refuse_unsupported_inputs(cuda):
         PA.paged_chunk_attention(q[0], pages, pages, bt, 0, 8)
     with pytest.raises(ValueError, match="bf16"):
         PA.paged_chunk_attention(q[0].float(), pages, pages, bt, 0, 8)
+    # the 16-byte loads refuse a base off 16 bytes and odd row strides
+    x = torch.zeros((1 + 4 * 9 * 64,), dtype=torch.bfloat16,
+                    device=cuda)[1:].view(1, 4, 9, 64)   # base 2 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        FA.flash_attention(x, x, x)
+    pool = torch.zeros((5, 8, 1, 36), dtype=torch.bfloat16, device=cuda)
+    kp = pool[..., :32]                        # rows 72 bytes apart
+    qd = torch.zeros((2, 4, 32), dtype=torch.bfloat16, device=cuda)
+    cl = torch.ones((2,), dtype=torch.int32, device=cuda)
+    bt2 = torch.zeros((2, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        DA.paged_decode_attention(qd, kp, kp, bt2, cl)
+    p48 = torch.zeros((5, 8, 1, 48), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        DA.paged_decode_attention(p48[:2, :4, 0], p48, p48, bt2, cl)
 
 
 @pytest.mark.cuda

@@ -74,6 +74,23 @@ def test_profile_trace_summary_unions_device_spans():
     assert out["kernel_launches"] == 3
 
 
+def test_profile_trace_summary_paged_decode_share():
+    """The paged decode attention's share of kernel time sums both of its
+    kernels, the split and the in-order combine."""
+    from repro_torch.launch.profile_engine import trace_summary
+
+    ev = lambda name, ts, dur: dict(ph="X", cat="kernel", name=name, ts=ts,
+                                    dur=dur)
+    split = "(anonymous namespace)::decode_split_kernel(__nv_bfloat16 const*)"
+    combine = "(anonymous namespace)::decode_combine_kernel(float const*)"
+    trace = {"traceEvents": [ev(split, 0, 6), ev(combine, 6, 2),
+                             ev("ampere_bf16_gemm", 8, 12), ev(split, 20, 4),
+                             ev(combine, 24, 1)]}
+    out = trace_summary(trace, wall_us=50.0)
+    assert out["paged_decode_ms"] == pytest.approx(0.013)
+    assert out["paged_decode_share_of_kernel_time"] == pytest.approx(13 / 25)
+
+
 @pytest.mark.parametrize("field,value", [
     ("disk_kv_bytes", 1e6), ("async_data_plane", True), ("role", "prefill"),
 ])
