@@ -9,10 +9,12 @@ Phases, each fatal on failure:
    parallel).
 2. Kernel checks at the serving path's shapes: each kernel against its plain
    PyTorch version on the same inputs (bf16 tolerance) over its edge cases,
-   two launches of the flash and decode kernels bitwise equal, and each row
-   of a batch-8 decode bitwise equal to its request alone; then each kernel
-   timed with CUDA events beside its bound, its plain version and, for
-   flash attention, ``scaled_dot_product_attention``.
+   two launches of each kernel bitwise equal, each row of a batch-8 decode
+   bitwise equal to its request alone, and chunk rows bitwise equal
+   whichever chunk carries them; then each kernel timed with CUDA events
+   beside its bound, its plain version and, for flash attention,
+   ``scaled_dot_product_attention`` (for the chunk kernel, SDPA over the
+   context gathered beforehand, as a reference point).
 3. Full-width qwen2.5-3b (random weights, seed 0) served by the port's
    engine with online interval autotuning and a host KV tier: every request
    finishes at a finite offloading interval, the trace audit is clean, the
@@ -250,6 +252,7 @@ def check_flash(flush: torch.Tensor) -> dict:
 
 
 def check_chunk(flush: torch.Tensor) -> dict:
+    from repro_torch.kernels import _build
     from repro_torch.kernels import prefill_attention as PA
 
     dev = torch.device("cuda")
@@ -262,26 +265,74 @@ def check_chunk(flush: torch.Tensor) -> dict:
     layer = 17
     kp, vp = pool[:, :, layer, 0], pool[:, :, layer, 1]
     q = torch.randn((256, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    q32 = torch.randn((64, 2 * h, d), generator=gen, device=dev).to(
+        torch.bfloat16)
     bt = torch.randperm(frames - 1, generator=gen, device=dev)[:nb].to(
         torch.int32)
     bt_pad = bt.clone()
     bt_pad[32:] = 99_999        # out-of-range entries past the context
     bt_pad[40:] = -3
-    # (queries, table, start, context_len): the serving chunk first
-    cases = {"main": (q, bt, 768, 1024), "first_chunk": (q, bt, 0, 256),
-             "partial_final": (q[:77], bt, 512, 589),
-             "padded_oob": (q, bt_pad, 256, 512),
-             "context_clamped": (q, bt, 700, 800),
-             "context_zero": (q[:64], bt, 0, 0),
-             "single_token": (q[:1], bt, 1000, 1001)}
+    span = PA.SPAN_KEYS
+    # (queries, k pages, v pages, table, start, context_len): the serving
+    # chunk first; every case reads the strided layer slice of the pool
+    cases = {"main": (q, kp, vp, bt, 768, 1024),
+             "first_chunk": (q, kp, vp, bt, 0, 256),
+             "partial_final": (q[:77], kp, vp, bt, 512, 589),
+             "padded_oob": (q, kp, vp, bt_pad, 256, 512),
+             "context_clamped": (q, kp, vp, bt, 700, 800),
+             "context_zero": (q[:64], kp, vp, bt, 0, 0),
+             "single_token": (q[:1], kp, vp, bt, 1000, 1001),
+             # contexts across one and several span bounds
+             "cross_one_span": (q[:64], kp, vp, bt, span - 30, span + 34),
+             "cross_spans": (q, kp, vp, bt, 2 * span - 100, 3 * span + 156),
+             # tiles straddling a bound: their first rows see no key of
+             # the later span
+             "later_span_empty": (q[:20], kp, vp, bt, span - 6, span + 14),
+             # queries 990..1029 over a context of 1000: the last live
+             # page (keys up to 1007) stays visible
+             "context_below_chunk_end": (q[:40], kp, vp, bt, 990, 1000),
+             "g1": (q[:, :vh], kp, vp, bt, 768, 1024),
+             "g4": (q[:, :4 * vh], kp, vp, bt, 768, 1024),
+             "g16": (q32, kp, vp, bt, 600, 664)}
+    for dd in (16, 32, 64):     # head dims as D-slices of the same pool
+        cases[f"d{dd}"] = (q[..., :dd], kp[..., :dd], vp[..., :dd], bt, 300,
+                           556)
     errs = []
-    for name, (qq, tt, st, cl) in cases.items():
-        got = PA.paged_chunk_attention(qq, kp, vp, tt, st, cl)
-        want = PA.paged_chunk_attention_plain(qq, kp, vp, tt, st, cl)
+    for name, (qq, kk, vv, tt, st, cl) in cases.items():
+        got = PA.paged_chunk_attention(qq, kk, vv, tt, st, cl)
+        want = PA.paged_chunk_attention_plain(qq, kk, vv, tt, st, cl)
         errs.append(max_err(got, want, f"paged_chunk[{name}]"))
         if cl == 0 and torch.count_nonzero(got):
             raise AssertionError("paged_chunk[context_zero]: not all zeros")
     c, start, cl = 256, 768, 1024
+    # the bits repeat, and a row's bits depend only on its position and the
+    # keys up to it: tokens 800-815 in the serving chunk and in a 16-token
+    # chunk over the same table, and single tokens alone
+    full = PA.paged_chunk_attention(q, kp, vp, bt, start, cl)
+    if not torch.equal(full, PA.paged_chunk_attention(q, kp, vp, bt, start,
+                                                      cl)):
+        raise AssertionError("paged_chunk: two launches differ")
+    part = PA.paged_chunk_attention(q[32:48], kp, vp, bt, 800, 816)
+    if not torch.equal(part, full[32:48]):
+        raise AssertionError("paged_chunk: tokens 800-815 differ between a "
+                             "256-token and a 16-token chunk")
+    for t in (0, 7, 191, 255):
+        alone = PA.paged_chunk_attention(q[t:t + 1], kp, vp, bt, start + t,
+                                         start + t + 1)
+        if not torch.equal(alone[0], full[t]):
+            raise AssertionError(f"paged_chunk: token {start + t} alone "
+                                 f"differs from its row in the chunk")
+    # a one-span tile's direct write equals the combine of one non-empty
+    # span: token 255 alone (one span) and in a chunk at start 250, context
+    # 270, whose first tile has a second span with no key visible to it
+    bound = PA.paged_chunk_attention(q[:20], kp, vp, bt, span - 6, span + 14)
+    alone = PA.paged_chunk_attention(q[5:6], kp, vp, bt, span - 1, span)
+    if not torch.equal(alone[0], bound[5]):
+        raise AssertionError(f"paged_chunk: token {span - 1} alone differs "
+                             f"from its row in a two-span tile")
+    checks = list(cases) + ["bitwise_repeat", "chunk_independent",
+                            "span_bound_direct_vs_combine"]
+    splits = PA.split_geometry(c, h, vh, d, PA.key_end(c, page, start, cl))[0]
     ms = time_ms(lambda: PA.paged_chunk_attention(q, kp, vp, bt, start, cl),
                  flush=flush)
     plain_ms = time_ms(lambda: PA.paged_chunk_attention_plain(
@@ -299,8 +350,7 @@ def check_chunk(flush: torch.Tensor) -> dict:
            <= start + torch.arange(c, device=dev)[:, None])
     sdpa = lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=vis)
     sdpa_err = float((sdpa()[0].transpose(0, 1).float()
-                      - PA.paged_chunk_attention(q, kp, vp, bt, start, cl)
-                      .float()).abs().max())
+                      - full.float()).abs().max())
     sdpa_ms = time_ms(sdpa, flush=flush)
     live_keys = min(-(-cl // page) * page, start + c)
     pairs = sum(min(start + t + 1, live_keys) for t in range(c))
@@ -310,17 +360,23 @@ def check_chunk(flush: torch.Tensor) -> dict:
               + nb * 4)
     bound_ms, bound_by = max((nbytes / HBM_BYTES_S * 1e3, "bytes"),
                              (flops / BF16_FLOPS_S * 1e3, "operations"))
+    ptxas = [ln.strip() for ln in _build.build_log(
+        "prefill_attention").splitlines() if "registers" in ln
+        or "spill" in ln]
     log(f"paged_chunk: C={c} H={h} V={vh} D={d} page={page} nb={nb} "
-        f"start={start} context_len={cl} checks={list(cases)} "
-        f"max_abs_err={max(errs):.3g} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"bound_ms={bound_ms:.5f} ({bound_by}) "
-        f"sdpa_pregathered_ms={sdpa_ms:.4f} (max |diff| {sdpa_err:.3g})")
+        f"start={start} context_len={cl} splits={splits} (span {span} keys, "
+        f"grid {-(-c // (64 // (h // vh)))} x {vh} x {splits}) "
+        f"checks={checks} max_abs_err={max(errs):.3g} ms={ms:.5f} "
+        f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}) "
+        f"sdpa_pregathered_ms={sdpa_ms:.5f} (max |diff| {sdpa_err:.3g}, "
+        f"kernel / sdpa {ms / sdpa_ms:.3f})")
+    log(f"paged_chunk ptxas: {' | '.join(ptxas)}")
     return {"name": "paged_chunk_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/prefill_attention.cu",
             "replaces": "src/repro/kernels/prefill_attention.py:78",
             "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "check": "pass", "checks": list(cases)}
+            "check": "pass", "checks": checks}
 
 
 # ---------------------------------------------------------------------------

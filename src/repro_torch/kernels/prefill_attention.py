@@ -7,12 +7,16 @@ The C queries of one request's prompt chunk, at absolute positions
 block table: the prefix pages earlier chunks wrote plus the chunk's own. The
 CUDA kernel (``csrc/prefill_attention.cu``) does about
 ``4 * H * D * sum_t (start + t + 1)`` FLOPs against one read of the live
-pages, so a long chunk is bound by operations. One thread block per (tile of
-query tokens, KV head) holds all ``H / V`` query heads of its tokens, so each
-K/V page is read once per tile and serves every head of the group; it walks
-the pages in order up to the tile's last query position (causal pruning
-keeps a chunk's work O(C * prefix)), and reads them in place through the
-pool's layer strides.
+pages, so a long chunk is bound by operations, and it runs both products on
+the tensor cores (``mma.sync``). A thread block's 64 rows hold all ``H / V``
+query heads of its tokens, so each K/V tile, copied in 16-byte pieces
+through the block table and the pool's layer strides, serves every head of
+the group. Each block's keys (up to its last query position: causal
+pruning) are split into fixed spans of ``SPAN_KEYS`` keys, one block per
+(token tile, KV head, span), so one request's chunk fills the card; a tile
+with several spans writes fp32 partials to a scratch this wrapper
+allocates, and a second kernel, launched from the same C entry point,
+merges them in span order.
 
 On a CPU tensor the wrapper runs the plain version, which repeats the
 Pallas kernel's arithmetic (fp32 online softmax page by page, queries scaled
@@ -30,11 +34,16 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 64          # query heads per KV head the kernel's row tile holds
+# keys per split span: kSpan of csrc/prefill_attention.cu (each launch checks
+# split_geometry's span count against the library's)
+SPAN_KEYS = 256
 
 # kernel launches since the last reset (the main-path evidence)
 launches = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
+_launch_fn = None
+_splits_fn = None
 
 
 def _clamped(nb: int, page: int, start: int,
@@ -43,6 +52,65 @@ def _clamped(nb: int, page: int, start: int,
     capacity ``[0, nb*page]``, then ``start`` into ``[0, context_len]``."""
     cl = min(max(int(context_len), 0), nb * page)
     return min(max(int(start), 0), cl), cl
+
+
+def key_end(c: int, page: int, start: int, context_len: int) -> int:
+    """Keys ``[0, key_end)`` that some query of the chunk may see, for a
+    clamped ``start`` and ``context_len``: the live pages
+    (``ceil(context_len / page) * page``), none past the last query
+    position ``start + c - 1``."""
+    return min(-(-context_len // page) * page, start + c)
+
+
+def split_geometry(c: int, h: int, vh: int, d: int,
+                   k_end: int) -> tuple[int, dict[str, tuple[int, ...]]]:
+    """The split kernel's geometry for one launch whose last token tile
+    sees keys ``[0, k_end)``: the number of spans S (``SPAN_KEYS`` keys
+    each, at least one) and the fp32 partials of a launch with S > 1, laid
+    out one after another in one scratch buffer: ``acc`` ``(S, V, C*g,
+    D)``, then ``m`` and ``l`` ``(S, V, C*g)``, rows in the Pallas
+    ``[V, C*G]`` order."""
+    splits = max(1, -(-k_end // SPAN_KEYS))
+    rows = (splits, vh, c * (h // vh))
+    return splits, {"acc": rows + (d,), "m": rows, "l": rows}
+
+
+def check_kernel_inputs(q: torch.Tensor, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor,
+                        block_table: torch.Tensor) -> None:
+    """Raise unless the kernel can take these inputs, wherever they lie:
+    bf16, unit stride along head_dim, views the 16-byte copies can read
+    (``_build.require_vector_aligned``), head_dim in ``HEAD_DIMS``,
+    ``V | H``, ``H / V <= MAX_GROUP`` and a 1-D table."""
+    c, h, d = q.shape
+    _, _, vh, dk = k_pages.shape
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.dtype != torch.bfloat16 or t.stride(-1) != 1:
+            raise ValueError(f"{name}: need a bf16 CUDA tensor with unit "
+                             f"stride along head_dim, got {t.dtype} "
+                             f"{t.device} strides {t.stride()}")
+        _build.require_vector_aligned(name, t)
+    if (d not in HEAD_DIMS or v_pages.shape != k_pages.shape or dk != d
+            or h % vh or h // vh > MAX_GROUP):
+        raise ValueError(f"unsupported shapes q {tuple(q.shape)} k "
+                         f"{tuple(k_pages.shape)} v {tuple(v_pages.shape)} "
+                         f"(head_dim in {HEAD_DIMS}, V | H, H / V <= "
+                         f"{MAX_GROUP})")
+    if block_table.dim() != 1:
+        raise ValueError(f"block_table {tuple(block_table.shape)}: need [nb]")
+
+
+def _kernel():
+    """The library's launch entry and its span count, loaded once."""
+    global _launch_fn, _splits_fn
+    if _launch_fn is None:
+        lib = _build.load("prefill_attention")
+        sp = lib.paged_chunk_splits
+        sp.argtypes, sp.restype = [ctypes.c_int] * 6, ctypes.c_int
+        fn = lib.paged_chunk_attention_bf16
+        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        _launch_fn, _splits_fn = fn, sp
+    return _launch_fn, _splits_fn
 
 
 def paged_chunk_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
@@ -89,42 +157,42 @@ def paged_chunk_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                                v_pages: torch.Tensor,
                                block_table: torch.Tensor, start: int,
                                context_len: int) -> torch.Tensor:
-    """Launch the Hopper kernel. q and the pages may be strided views (the
+    """Launch the Hopper kernels. q and the pages may be strided views (the
     engine passes the chunk's projections and a layer slice of its 6-D
-    pool); only D must be unit-stride. ``start`` and ``context_len`` are
-    host ints, passed as kernel arguments: no device scalar is read."""
+    pool); only D must be unit-stride, and the 16-byte copies need them
+    16-byte aligned with strides in multiples of 8 elements. ``start`` and
+    ``context_len`` are host ints, passed as kernel arguments: no device
+    scalar is read."""
     global launches
-    c, h, d = q.shape
-    npages, page, vh, dk = k_pages.shape
-    nb = block_table.shape[0]
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
-        if not t.is_cuda or t.dtype != torch.bfloat16 or t.stride(-1) != 1:
-            raise ValueError(f"{name}: need a bf16 CUDA tensor with unit "
-                             f"stride along head_dim, got {t.dtype} "
-                             f"{t.device} strides {t.stride()}")
-    if (d not in HEAD_DIMS or v_pages.shape != k_pages.shape or dk != d
-            or h % vh or h // vh > MAX_GROUP):
-        raise ValueError(f"unsupported shapes q {tuple(q.shape)} k "
-                         f"{tuple(k_pages.shape)} v {tuple(v_pages.shape)} "
-                         f"(head_dim in {HEAD_DIMS}, V | H, H / V <= "
-                         f"{MAX_GROUP})")
-    if block_table.dim() != 1:
-        raise ValueError(f"block_table {tuple(block_table.shape)}: need [nb]")
+        if not t.is_cuda:
+            raise ValueError(f"{name}: need a bf16 CUDA tensor, got "
+                             f"{t.dtype} {t.device}")
+    check_kernel_inputs(q, k_pages, v_pages, block_table)
+    c, h, d = q.shape
+    npages, page, vh, _ = k_pages.shape
+    nb = block_table.shape[0]
     st, cl = _clamped(nb, page, start, context_len)
     out = torch.empty((c, h, d), dtype=q.dtype, device=q.device)
     ints = (c, h, vh, d, page, nb, npages, st, cl, q.stride(0), q.stride(1),
             *k_pages.stride()[:3], *v_pages.stride()[:3])
-    if max(ints) >= 2**31 or c * h * d >= 2**31:
+    if max(ints) >= 2**31 or c * h * d >= 2**31 or nb * page >= 2**31:
         raise ValueError("sizes or strides beyond the kernel's 32-bit ints")
     if c == 0:
         return out
+    launch, lib_splits = _kernel()
+    splits, parts = split_geometry(c, h, vh, d, key_end(c, page, st, cl))
+    if lib_splits(c, h, vh, page, st, cl) != splits:
+        raise RuntimeError("prefill_attention.cu splits this launch's keys "
+                           "differently from split_geometry")
     bt = block_table.to(device=q.device, dtype=torch.int32).contiguous()
-    lib = _build.load("prefill_attention")
-    fn = lib.paged_chunk_attention_bf16
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             bt.data_ptr(), out.data_ptr(), *ints,
-             torch.cuda.current_stream(q.device).cuda_stream)
+    part = (torch.empty(sum(math.prod(s) for s in parts.values()),
+                        dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
+    err = launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 bt.data_ptr(), None if part is None else part.data_ptr(),
+                 out.data_ptr(), *ints,
+                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_chunk_attention launch")
     launches += 1
     return out

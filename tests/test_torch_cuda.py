@@ -160,14 +160,27 @@ def test_flash_kernel_is_bitwise_repeatable(cuda):
     assert torch.equal(first, FA.flash_attention(q, k, v))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("c,h,vh,d,page,nb,start,cl", [
+# (C, H, V, D, page, nb, start, context_len); spans are PA.SPAN_KEYS (256)
+# keys, so a context past 256 splits the key range
+CHUNK_CASES = [
     (40, 8, 2, 64, 16, 6, 37, 77),       # mid-prompt, partial last page
     (16, 4, 1, 16, 8, 4, 0, 16),         # first chunk, g 4
     (9, 4, 4, 32, 8, 5, 30, 33),         # g 1, context clamped below end
     (1, 16, 2, 128, 16, 64, 1000, 1001),  # one token deep in the context
     (70, 16, 2, 128, 16, 8, 0, 0),       # context_len 0: zeros
-])
+    (64, 16, 2, 128, 16, 20, 230, 294),  # crosses one span bound
+    (100, 8, 2, 64, 16, 50, 600, 700),   # crosses several span bounds
+    # tiles straddling 256: span 1 holds no visible key for their first rows
+    (20, 16, 2, 64, 16, 20, 250, 270),
+    (12, 4, 2, 32, 8, 4, 20, 25),        # context_below_chunk_end
+    (30, 32, 2, 128, 16, 40, 480, 510),  # g 16
+    (50, 6, 2, 32, 16, 40, 500, 550),    # g 3: padding rows in every tile
+    (200, 4, 4, 16, 16, 40, 300, 500),   # g 1, 64 tokens per tile, 2 spans
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,h,vh,d,page,nb,start,cl", CHUNK_CASES)
 def test_chunk_kernel_matches_plain(cuda, c, h, vh, d, page, nb, start, cl):
     rng = np.random.default_rng(2)
     frames, layers = nb + 3, 3
@@ -184,6 +197,72 @@ def test_chunk_kernel_matches_plain(cuda, c, h, vh, d, page, nb, start, cl):
     torch.testing.assert_close(got.float(), want.float(), **TOL)
     if cl == 0:
         assert torch.count_nonzero(got) == 0
+
+
+def _chunk_inputs(rng, dev, c, h, vh, d, page, nb, layers=4):
+    """A strided layer slice of a [frames, page, L, 2, vh, d] pool, the
+    chunk's queries and a table of distinct frames."""
+    frames = nb + 5
+    pool = _randn(rng, frames, page, layers, 2, vh, d, dev=dev)
+    kp, vp = pool[:, :, 1, 0], pool[:, :, 1, 1]
+    q = _randn(rng, c, h, d, dev=dev)
+    bt = torch.from_numpy(rng.permutation(frames)[:nb].astype(np.int32)
+                          ).to(dev)
+    return q, kp, vp, bt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("h,vh", [(2, 2), (8, 2), (16, 2), (32, 2)])
+def test_chunk_kernel_head_dims_and_groups(cuda, d, h, vh):
+    """g = H / V in {1, 4, 8, 16} and every head dim, over a context that
+    crosses span bounds, with table entries out of range and negative past
+    the context (clamped into the pool)."""
+    rng = np.random.default_rng(7)
+    q, kp, vp, bt = _chunk_inputs(rng, cuda, 96, h, vh, d, 16, 48)
+    bt[44:] = 99_999
+    bt[46:] = -3
+    for start, cl in ((0, 96), (224, 320), (600, 696), (650, 700)):
+        got = PA.paged_chunk_attention(q, kp, vp, bt, start, cl)
+        want = PA.paged_chunk_attention_plain(q, kp, vp, bt, start, cl)
+        torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+@pytest.mark.cuda
+def test_chunk_kernel_bitwise_repeatable_and_chunk_independent(cuda):
+    """Two launches give the same bits, and a query row's bits depend only
+    on its position and the keys up to it: the rows of tokens 800-815 in a
+    256-token chunk (start 768, context 1024) equal, bitwise, the same
+    tokens in a 16-token chunk (start 800, context 816), and single tokens
+    alone, over the same table."""
+    rng = np.random.default_rng(8)
+    q, kp, vp, bt = _chunk_inputs(rng, cuda, 256, 16, 2, 128, 16, 64)
+    full = PA.paged_chunk_attention(q, kp, vp, bt, 768, 1024)
+    assert torch.equal(full, PA.paged_chunk_attention(q, kp, vp, bt, 768,
+                                                      1024))
+    part = PA.paged_chunk_attention(q[32:48], kp, vp, bt, 800, 816)
+    assert torch.equal(part, full[32:48])
+    for t in (0, 7, 191, 255):
+        alone = PA.paged_chunk_attention(q[t:t + 1], kp, vp, bt, 768 + t,
+                                         769 + t)
+        assert torch.equal(alone[0], full[t]), t
+
+
+@pytest.mark.cuda
+def test_chunk_kernel_direct_write_equals_one_span_combine(cuda):
+    """A one-span tile's direct write and the combine of one non-empty span
+    give the same bits: token 255 alone (start 255, context 256: one span)
+    equals its row in a 20-token chunk at start 250, context 270, whose
+    first tile sees keys up to 257 (two spans, the second holding no
+    visible key for token 255)."""
+    rng = np.random.default_rng(9)
+    q, kp, vp, bt = _chunk_inputs(rng, cuda, 20, 16, 2, 128, 16, 20)
+    for c, start, cl, splits in ((1, 255, 256, 1), (20, 250, 270, 2)):
+        k_end = PA.key_end(c, 16, start, cl)
+        assert PA.split_geometry(c, 16, 2, 128, k_end)[0] == splits
+    chunk = PA.paged_chunk_attention(q, kp, vp, bt, 250, 270)
+    alone = PA.paged_chunk_attention(q[5:6], kp, vp, bt, 255, 256)
+    assert torch.equal(alone[0], chunk[5])
 
 
 @pytest.mark.cuda
@@ -206,6 +285,15 @@ def test_kernels_refuse_unsupported_inputs(cuda):
         FA.flash_attention(x, x, x)
     pool = torch.zeros((5, 8, 1, 36), dtype=torch.bfloat16, device=cuda)
     kp = pool[..., :32]                        # rows 72 bytes apart
+    qc = torch.zeros((3, 4, 32), dtype=torch.bfloat16, device=cuda)
+    bt1 = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        PA.paged_chunk_attention(qc, kp, kp, bt1, 0, 3)
+    qx = torch.zeros((1 + 3 * 4 * 32,), dtype=torch.bfloat16,
+                     device=cuda)[1:].view(3, 4, 32)     # base 2 bytes off
+    p32 = torch.zeros((5, 8, 1, 32), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        PA.paged_chunk_attention(qx, p32, p32, bt1, 0, 3)
     qd = torch.zeros((2, 4, 32), dtype=torch.bfloat16, device=cuda)
     cl = torch.ones((2,), dtype=torch.int32, device=cuda)
     bt2 = torch.zeros((2, 2), dtype=torch.int32, device=cuda)

@@ -91,6 +91,24 @@ def test_profile_trace_summary_paged_decode_share():
     assert out["paged_decode_share_of_kernel_time"] == pytest.approx(13 / 25)
 
 
+def test_profile_trace_summary_paged_chunk_share():
+    """The incremental profile's chunk-attention share sums the chunk
+    kernel's split and combine, apart from the paged decode's kernels."""
+    from repro_torch.launch.profile_engine import trace_summary
+
+    ev = lambda name, ts, dur: dict(ph="X", cat="kernel", name=name, ts=ts,
+                                    dur=dur)
+    split = "void (anonymous namespace)::chunk_split_kernel<128>(int)"
+    combine = "(anonymous namespace)::chunk_combine_kernel(float const*)"
+    decode = "(anonymous namespace)::decode_split_kernel(__nv_bfloat16*)"
+    trace = {"traceEvents": [ev(split, 0, 9), ev(combine, 9, 3),
+                             ev(decode, 12, 4), ev("nvjet_tst", 16, 24)]}
+    out = trace_summary(trace, wall_us=80.0)
+    assert out["paged_chunk_ms"] == pytest.approx(0.012)
+    assert out["paged_chunk_share_of_kernel_time"] == pytest.approx(12 / 40)
+    assert out["paged_decode_ms"] == pytest.approx(0.004)
+
+
 @pytest.mark.parametrize("field,value", [
     ("disk_kv_bytes", 1e6), ("async_data_plane", True), ("role", "prefill"),
 ])
