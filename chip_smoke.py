@@ -27,14 +27,22 @@ Phases, each fatal on failure:
    to 1000 tokens whose pages sit partly on the host tier: every request
    finishes, the chunk kernel ran, every prompt token was computed once,
    chunks streamed host pages, and the longest prompt's final-chunk logits
-   agree with its one-shot prefill.
+   agree with its one-shot prefill. Then the disk (NVMe) KV tier:
+   ``profile_engine.disk_engine``'s pressure trace at full width, once with
+   the synchronous copy-stage plane and once with the async one (one set of
+   weights): parks retire to disk and resumes stage back, every pool ends
+   empty, the decode and flash kernels ran, and the two runs give the same
+   tokens bit for bit, the same modeled clock (or, where the async run's
+   staged prefetch moved an NVMe charge, the reference's 2% bound with every
+   SLO met) and conserved staged-page counters; then a park's pages through
+   a file-backed disk pool and back, bit for bit.
 4. The CUDA engine in lockstep with the same engine on the CPU (the
-   kernels' plain versions) on a small model at interval 2 with a host KV
+   kernels' plain versions) on a small model: at interval 2 with a host KV
    tier, once with one-shot prefills and once with incremental chunked
-   prefill: equal iteration records, logits within the DualEngine
-   tolerance.
-5. The port's serve CLI on the reduced default config, with one-shot and
-   with incremental chunked prefill.
+   prefill, and on the disk pressure trace with the async plane: equal
+   iteration records, logits within the DualEngine tolerance.
+5. The port's serve CLI on the reduced default config: one-shot, incremental
+   chunked prefill, and three KV tiers with the async data plane.
 
 Prints a JSON ``kernels`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
@@ -42,10 +50,13 @@ when there is no GPU or any phase fails.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -574,15 +585,194 @@ def incremental_phase() -> int:
     return PA.launches
 
 
+def _page_bits(t: torch.Tensor) -> np.ndarray:
+    """A copy of a page's bf16 bit patterns (no float conversion)."""
+    return t.view(torch.int16).cpu().numpy().view(np.uint16).copy()
+
+
+def disk_phase(card: str) -> dict:
+    """The disk (NVMe) KV tier at full width: the pressure trace of
+    ``profile_engine.disk_engine`` with the sync and the async copy-stage
+    plane, then a park's pages through a file-backed disk pool. Returns the
+    decode and flash kernels' launches on the async run."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import prefill_attention as PA
+    from repro_torch.launch.profile_engine import (disk_engine, disk_requests,
+                                                   serve_disk_trace)
+
+    runs, launches, params = {}, {}, None
+    for async_plane in (False, True):
+        eng = disk_engine(async_plane=async_plane, params=params)
+        params = eng.params
+        first, later = disk_requests(eng, np.random.default_rng(0))
+        DA.launches = FA.launches = PA.launches = 0
+        t0 = time.perf_counter()
+        out = serve_disk_trace(eng, first, later)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches[async_plane] = {"paged_decode_attention": DA.launches,
+                                 "flash_attention": FA.launches}
+        report = eng.trace.audit()
+        plane, foot = eng.data_plane, eng.trace.footer()
+        summary = {
+            "async": async_plane, "finished": out["finished"],
+            "rejected": out["rejected"], "tokens": out["tokens"],
+            "preemptions": out["preemptions"], "resumes": out["resumes"],
+            "disk_demotions": out["disk_demotions"],
+            "disk_stagings": out["disk_stagings"],
+            "prefetch_pages": out["prefetch_pages"],
+            "disk_direct_pages": out["disk_direct_pages"],
+            "disk_out_pages": eng.kv.disk_out_pages_total,
+            "disk_in_pages": eng.kv.disk_in_pages_total,
+            "disk_kv_peak_pages": eng.disk_kv_peak_pages,
+            "staged_issued_pages": foot["staged_issued_pages_total"],
+            "staged_completed_pages": foot["staged_completed_pages_total"],
+            "staged_inflight_pages": foot["staged_inflight_pages"],
+            "launches": launches[async_plane], "audit_ok": report.ok,
+            "audit_checks": report.checks, "slo_ok_modeled_clock":
+                out["slo_ok"], "interval": eng.interval,
+            "decode_stream_ms_median": statistics.median(eng.decode_ms),
+            "prefill_stream_ms_median": statistics.median(eng.prefill_ms),
+            # wall seconds of the plane's copies on the serving thread (a
+            # device->host copy also waits for the kernels queued before
+            # it) and on its background worker
+            "blocking_copy_s": plane.blocking_copy_s,
+            "background_copy_s": plane.background_copy_s,
+            "run_s": run_s, "wall_modeled_s": out["wall_modeled_s"],
+            "card": card,
+        }
+        log("disk_engine: " + json.dumps(summary))
+        n = len(first) + len(later)
+        if out["finished"] != n or out["rejected"]:
+            raise AssertionError(f"disk engine finished {out['finished']} "
+                                 f"of {n} requests")
+        if not report.ok:
+            raise AssertionError(f"trace audit: {report.violations[:5]}")
+        eng.kv.check_invariants()
+        if not (out["preemptions"] > 0 and out["disk_demotions"] > 0
+                and out["disk_stagings"] > 0
+                and eng.kv.disk_out_pages_total > 0):
+            raise AssertionError("the disk trace did not park to disk and "
+                                 "stage back")
+        if (eng.kv.device.used_pages, eng.kv.host.used_pages,
+                eng.kv.disk.used_pages) != (0, 0, 0):
+            raise AssertionError("KV pages left in a pool after the run")
+        if not all(v > 0 for v in launches[async_plane].values()):
+            raise AssertionError(f"a kernel never ran on the disk path: "
+                                 f"{launches[async_plane]}")
+        for r in eng.finished:
+            if len(r.generated) != r.max_new_tokens or not all(
+                    0 <= t < eng.cfg.padded_vocab() for t in r.generated):
+                raise AssertionError(f"rid {r.rid}: bad tokens")
+        runs[async_plane] = eng
+    sync, asyn = runs[False], runs[True]
+    # tests/differential/test_async_data_plane.py::_assert_equivalent
+    tok_s = {r.rid: list(r.generated) for r in sync.finished}
+    tok_a = {r.rid: list(r.generated) for r in asyn.finished}
+    if tok_s != tok_a:
+        raise AssertionError("sync and async runs emitted different tokens")
+    d_clock = asyn.clock_s - sync.clock_s
+    if asyn.prefetch_pages_total == 0:
+        if d_clock != 0.0:
+            raise AssertionError("the modeled clocks differ without a "
+                                 "prefetch")
+    else:
+        # the staged prefetch moves NVMe reads to earlier iterations: the
+        # clocks may differ within a hair, every SLO still met
+        if abs(d_clock) > 0.02 * sync.clock_s:
+            raise AssertionError(f"modeled clocks differ by {d_clock}")
+        for eng in (sync, asyn):
+            if not all(r.metrics()["tpot_ok"] and r.metrics()["ttft_ok"]
+                       for r in eng.finished):
+                raise AssertionError("an SLO missed on the modeled clock")
+    foot = asyn.trace.footer()
+    if not (foot["staged_issued_pages_total"]
+            == foot["staged_completed_pages_total"] > 0
+            and foot["staged_inflight_pages"] == 0):
+        raise AssertionError(f"async staged pages not conserved: {foot}")
+    if any(r.staged_issued_pages != r.staged_completed_pages
+           for r in sync.trace.iterations):
+        raise AssertionError("a sync iteration left a staged copy open")
+    if (asyn.kv.disk_in_pages_total != sync.kv.disk_in_pages_total
+            or asyn.kv.disk_out_pages_total != sync.kv.disk_out_pages_total):
+        raise AssertionError("the async run moved different NVMe traffic")
+    # test_async_disk_pressure_bitwise_and_clock_identical: the async plane
+    # left copies in flight past an iteration's end, and prefetched
+    deferred = sum(r.staged_issued_pages != r.staged_completed_pages
+                   for r in asyn.trace.iterations)
+    if not (deferred and asyn.prefetch_pages_total >= 1
+            and sync.prefetch_pages_total == 0):
+        raise AssertionError("the async run never deferred a copy or never "
+                             "prefetched")
+    log(f"disk_sync_vs_async: tokens bitwise equal over {len(tok_s)} "
+        f"requests, modeled clock sync {sync.clock_s!r} async "
+        f"{asyn.clock_s!r} (diff {d_clock!r}, prefetch pages "
+        f"{asyn.prefetch_pages_total}), async staged issued == completed "
+        f"== {foot['staged_issued_pages_total']}, iterations ending with "
+        f"copies in flight {deferred}")
+
+    # a park's pages through a file-backed disk pool and back, bit for bit
+    # (tests/differential/test_disk_tier.py's physical gate): L1's two
+    # host-tier pages retire to the file, its two device pages park on the
+    # host and retire after them, and the resume stages all four back onto
+    # the card and the host tier
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "kv_disk.bin"
+        eng = disk_engine(backing_path=str(path), params=params)
+        first, _ = disk_requests(eng, np.random.default_rng(1))
+        for r in first:
+            eng.submit(r)
+        eng.step()
+        eng.step()
+        s0, l1 = (r.rid for r in first)
+        refs = eng.kv.refs(l1)
+        before = [_page_bits(eng.pool[r.page] if r.tier == "device"
+                             else eng.host_pool[r.page]) for r in refs]
+        tiers = [r.tier for r in refs]
+        eng.kv.demote_to_disk(l1, len(eng.kv.host_pages_of(l1)))
+        if eng.kv.park(l1, [s0]) is None:
+            raise AssertionError("park refused")
+        eng.kv.demote_to_disk(l1, 99)
+        if not all(r.tier == "disk" for r in eng.kv.refs(l1)):
+            raise AssertionError("the parked pages did not all retire")
+        frames = [r.page for r in eng.kv.refs(l1)]
+        raw = np.fromfile(path, dtype=np.uint16).reshape(
+            eng.kv.disk.total_pages, -1)
+        on_file = all(np.array_equal(raw[f], b.ravel())
+                      for f, b in zip(frames, before))
+        eng.host_pool.zero_()                   # clobber the host tier
+        if eng.kv.resume(l1) is None:
+            raise AssertionError("resume refused")
+        refs = eng.kv.refs(l1)
+        tiers_back = [r.tier for r in refs]
+        back = "disk" not in tiers_back and all(
+            np.array_equal(_page_bits(eng.pool[r.page] if r.tier == "device"
+                                      else eng.host_pool[r.page]), b)
+            for r, b in zip(refs, before))
+        eng.kv.check_invariants()
+        log(f"disk_file_round_trip: {len(before)} pages (tiers {tiers} -> "
+            f"disk file -> {tiers_back}, {eng.kv.page_bytes} B each, host "
+            f"pool cleared before the resume), file holds "
+            f"the parked bits {on_file}, resumed bits equal {back}, direct "
+            f"disk->device pages {eng.kv.disk_direct_pages_total}, file "
+            f"{path.stat().st_size} B")
+        if not (on_file and back):
+            raise AssertionError("page bits changed through the disk file")
+    return launches[True]
+
+
 def reference_phase(name: str = "reference_lockstep",
-                    incremental: bool = False) -> None:
+                    incremental: bool = False, disk: bool = False) -> None:
     """The CUDA engine against the same engine on the CPU, which runs the
     kernels' plain versions: a small model, the same weights and the same
     trace, step by step. Scheduling decisions and iteration records must be
     equal, logits agree at the DualEngine tolerance, and on a numeric tie
     the CUDA engine is teacher-forced with the CPU engine's token. With
     ``incremental``, prompts prefill in 16-token chunks through the chunk
-    kernel and some of those chunks read host-tier pages."""
+    kernel and some of those chunks read host-tier pages. With ``disk``,
+    the engines are ``profile_engine.disk_engine``'s at the small width,
+    with the async copy-stage plane, serving its disk pressure trace."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -590,6 +780,7 @@ def reference_phase(name: str = "reference_lockstep",
     from repro_torch.core import costs
     from repro_torch.core.hardware import PRESETS
     from repro_torch.core.interval import OffloadPlan
+    from repro_torch.launch.profile_engine import disk_engine, disk_requests
     from repro_torch.launch.serve import build_engine
     from repro_torch.models.model import build_model
     from repro_torch.models.transformer import pattern_info
@@ -607,21 +798,34 @@ def reference_phase(name: str = "reference_lockstep",
                         prefill_chunk_tokens=16 if incremental else 0,
                         incremental_prefill=incremental)
     params = build_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
-    slos = [0.002 * k for k in range(1, 30)]
-    cpu, gpu = (build_engine(f"ref-{d}", cfg, PRESETS["h100"], ecfg, slos,
-                             device=d, params=params) for d in ("cpu", "cuda"))
-    for eng in (cpu, gpu):
-        if not eng.set_interval(2):
-            raise AssertionError("interval 2 refused")
-    rng = np.random.default_rng(5)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in (20, 9, 30, 14, 25, 5)]
-    for eng in (gpu, cpu):
-        creqs = {i: Request(rid=i, prompt=p, max_new_tokens=10,
-                            ttft_slo_s=10.0, tpot_slo_s=10.0)
-                 for i, p in enumerate(prompts)}
-        for r in creqs.values():
-            eng.submit(r)
+    later: list[tuple] = []           # (engine, its second-wave requests)
+    if disk:
+        cpu, gpu = (disk_engine(d, async_plane=True, params=params, cfg=cfg)
+                    for d in ("cpu", "cuda"))
+        for eng in (gpu, cpu):
+            first, wave = disk_requests(eng, np.random.default_rng(5))
+            later.append((eng, wave))
+            creqs = {r.rid: r for r in first + wave}
+            for r in first:
+                eng.submit(r)
+        prompts = list(creqs)
+    else:
+        slos = [0.002 * k for k in range(1, 30)]
+        cpu, gpu = (build_engine(f"ref-{d}", cfg, PRESETS["h100"], ecfg,
+                                 slos, device=d, params=params)
+                    for d in ("cpu", "cuda"))
+        for eng in (cpu, gpu):
+            if not eng.set_interval(2):
+                raise AssertionError("interval 2 refused")
+        rng = np.random.default_rng(5)
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in (20, 9, 30, 14, 25, 5)]
+        for eng in (gpu, cpu):
+            creqs = {i: Request(rid=i, prompt=p, max_new_tokens=10,
+                                ttft_slo_s=10.0, tpot_slo_s=10.0)
+                     for i, p in enumerate(prompts)}
+            for r in creqs.values():
+                eng.submit(r)
     state = {"expect": {}, "compares": 0, "ties": 0, "err": 0.0}
 
     def forced(req, logits):
@@ -640,7 +844,11 @@ def reference_phase(name: str = "reference_lockstep",
         return tok
 
     gpu._greedy = forced
-    for _ in range(300):
+    for it in range(300):
+        if it == 2:                     # the disk trace's second wave
+            for eng, wave in later:
+                for r in wave:
+                    eng.submit(r)
         if not (cpu.scheduler.has_work() or cpu._active_batch()):
             break
         before = {rid: len(r.generated) for rid, r in creqs.items()}
@@ -661,6 +869,9 @@ def reference_phase(name: str = "reference_lockstep",
         if (dataclasses.asdict(gpu.trace.iterations[-1])
                 != dataclasses.asdict(cpu.trace.iterations[-1])):
             raise AssertionError("iteration records differ")
+    for eng in (cpu, gpu):
+        if eng.data_plane is not None:
+            eng.data_plane.sync()
     done = [sorted((r.rid, tuple(r.generated)) for r in e.finished)
             for e in (cpu, gpu)]
     log(f"{name}: {len(gpu.finished)} finished, "
@@ -669,7 +880,9 @@ def reference_phase(name: str = "reference_lockstep",
         f"streamed pages peak {gpu.streamed_pages_peak}, chunk pages "
         f"streamed {gpu.chunk_pages_streamed}, prefill tokens computed "
         f"{gpu.prefill_tokens_computed} / {cpu.prefill_tokens_computed}, "
-        f"records {len(gpu.trace.iterations)} equal")
+        f"parks {gpu.scheduler.stats['preemptions']}, disk pages out "
+        f"{gpu.kv.disk_out_pages_total}, records "
+        f"{len(gpu.trace.iterations)} equal")
     if done[0] != done[1] or len(done[1]) != len(prompts):
         raise AssertionError("CUDA and CPU engines finished differently")
     if state["ties"] > max(1, 0.05 * state["compares"]):
@@ -684,20 +897,35 @@ def reference_phase(name: str = "reference_lockstep",
                         != sum(len(p) for p in prompts)):
         raise AssertionError("the incremental trace bypassed the chunk path "
                              "over host pages, or was not linear")
+    if disk and not (gpu.scheduler.stats["preemptions"] > 0
+                     and gpu.kv.disk_out_pages_total > 0
+                     and gpu._trace_footer() == cpu._trace_footer()):
+        raise AssertionError("the disk trace did not reach the disk, or the "
+                             "engines' footers differ")
 
 
-def cli_phase(extra: tuple[str, ...] = (), trace: str = "smoke_cli_trace"
-              ) -> None:
+def cli_phase(extra: tuple[str, ...] = (), trace: str = "smoke_cli_trace",
+              want: dict | None = None) -> None:
+    """The serve CLI on the reduced default config; ``want`` holds summary
+    keys and the values they must have."""
     from repro_torch.launch import serve
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    out = serve.main(["--device", "cuda", "--hw", "h100", "--requests", "6",
-                      "--host-kv-gb", "0.0001", *extra, "--metrics-out",
-                      str(out_dir / f"{trace}.json")])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = serve.main(["--device", "cuda", "--hw", "h100", "--requests",
+                          "6", "--host-kv-gb", "0.0001", *extra,
+                          "--metrics-out", str(out_dir / f"{trace}.json")])
+    summary = json.loads(buf.getvalue())
+    log(buf.getvalue().rstrip())
     if out["finished"] + out["rejected"] != 6 or out["finished"] == 0:
         raise AssertionError(f"serve CLI {list(extra)}: {out['finished']} "
                              f"finished, {out['rejected']} rejected of 6")
+    for key, value in (want or {}).items():
+        if summary[key] != value:
+            raise AssertionError(f"serve CLI {list(extra)}: {key} = "
+                                 f"{summary[key]}, not {value}")
 
 
 def main() -> int:
@@ -730,11 +958,16 @@ def main() -> int:
     launches["paged_chunk_attention"] = incremental_phase()
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    disk_launches = disk_phase(card)
+    log(f"disk path launches (async run): {json.dumps(disk_launches)}")
     reference_phase()
     reference_phase("incremental_lockstep", incremental=True)
+    reference_phase("disk_lockstep", disk=True)
     cli_phase()
     cli_phase(("--prefill-chunk-tokens", "16", "--incremental-prefill"),
               "smoke_cli_incremental_trace")
+    cli_phase(("--preemption", "--disk-kv-gb", "0.0001", "--async-data-plane"),
+              "smoke_cli_disk_trace", want={"kv_tiers": 3})
 
     log(f"total seconds: {time.perf_counter() - t_start:.1f}")
     log(card)                       # name, power limit as nvidia-smi gives

@@ -1,9 +1,10 @@
-"""Where a decode iteration's, or an incremental chunk step's, time goes on
-the GPU.
+"""Where a decode iteration's, an incremental chunk step's, or the disk
+tier's time goes on the GPU.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_engine \\
         [--iters 4] [--out chiprun_out/profile_engine]
     PYTHONPATH=src python -m repro_torch.launch.profile_engine --incremental
+    PYTHONPATH=src python -m repro_torch.launch.profile_engine --disk
 
 Serves the full-width qwen2.5-3b (random weights, seed 0) with the engine
 configuration that ``chip_smoke.py`` also builds through ``smoke_engine``
@@ -13,18 +14,23 @@ then traces ``--iters`` decode iterations with ``torch.profiler``. With
 ``--incremental`` the engine prefills in 256-token chunks through the paged
 chunk-prefill kernel: after a short warm-up run it serves
 ``LONG_PROMPT_LENS`` and traces every step until each prompt is prefilled
-(the chunk steps, each of which also carries the decode iteration). Prints
-one JSON object: the window's wall time (host clock, synchronized), the
+(the chunk steps, each of which also carries the decode iteration). With
+``--disk`` it serves the disk-pressure trace of ``disk_engine`` with the
+async copy-stage data plane (after a warm-up run of the same trace on an
+engine with the same weights) and traces every step of it. Prints one JSON
+object: the window's wall time (host clock, synchronized), the
 device time covered by kernels, by host<->device copies, by both at once
 and by either, the resulting device idle share, the paged decode and chunk
 attention kernels' time and share of kernel time, and the kernels that took
-the most device time. The Chrome trace is written under ``--out``. Needs a
-GPU.
+the most device time; ``--disk`` adds the data plane's wall seconds (copies
+on the serving thread and on its background worker) and staged pages. The
+Chrome trace is written under ``--out``. Needs a GPU.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -33,9 +39,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core import costs
 from repro_torch.core.hardware import PRESETS
-from repro_torch.core.interval import OffloadPlan
+from repro_torch.core.interval import OffloadPlan, iter_time_with_interval_kv
+from repro_torch.core.slo import SLO_GRANULARITY_S
 from repro_torch.launch.serve import build_engine
 from repro_torch.models.transformer import pattern_info
 from repro_torch.serving.engine import EngineConfig
@@ -85,6 +93,89 @@ def smoke_requests(vocab: int, max_new_tokens: int, rng: np.random.Generator,
                     max_new_tokens=max_new_tokens, ttft_slo_s=2.0,
                     tpot_slo_s=TPOT_SLO_S)
             for i, n in enumerate(prompt_lens)]
+
+
+# the disk-pressure trace (tests/differential/test_async_data_plane.py's
+# fig18 trace at page 16, token counts doubled so the page counts match)
+DISK_MAX_SEQ = 96
+DISK_INTERVAL = 6
+
+
+def disk_engine(device: str = "cuda", *, async_plane: bool = False,
+                backing_path: str | None = None, params: dict | None = None,
+                cfg: ModelConfig | None = None):
+    """The engine of the disk-tier runs: full-width qwen2.5-3b (or ``cfg``)
+    at page 16 and a fixed interval 6 (set here; no autotuning), with HBM
+    for interval 6's resident units plus 4 KV pages, a host tier of 2
+    pages, a disk tier of 16 and preemption on. The host tier holds exactly
+    the long request's spill, so parking it forces a disk retirement.
+    ``async_plane`` queues the copies for the next iteration boundary;
+    ``backing_path`` maps the disk pool onto a file; ``params`` reuses a
+    parameter tree (one 3B init for several engines)."""
+    cfg = cfg or get_config("qwen2.5-3b")
+    _, units = pattern_info(cfg)
+    page_bytes = PAGE_SIZE * costs.kv_cache_bytes(cfg, 1, 1)
+    ecfg = EngineConfig(
+        max_batch=4, max_seq=DISK_MAX_SEQ, page_size=PAGE_SIZE,
+        hbm_budget_bytes=OffloadPlan(units, DISK_INTERVAL).device_bytes(
+            costs.unit_weight_bytes(cfg)) + 4 * page_bytes,
+        host_kv_bytes=2 * page_bytes, disk_kv_bytes=16 * page_bytes,
+        disk_backing_path=backing_path, preemption=True,
+        async_data_plane=async_plane)
+    eng = build_engine(f"disk{'_async' if async_plane else ''}", cfg,
+                       PRESETS["h100"], ecfg,
+                       [0.002 * k for k in range(1, 120)], device=device,
+                       params=params)
+    if not eng.set_interval(DISK_INTERVAL):
+        raise RuntimeError("the disk engine refused its interval")
+    return eng
+
+
+def disk_requests(eng, rng: np.random.Generator
+                  ) -> tuple[list[Request], list[Request]]:
+    """The pressure trace: S0 (8 prompt + 24 new tokens) and L1 (32 + 32,
+    2 device + 2 host pages) first, then four shorts of 8 + 8. A short
+    cannot spill (L1's spill fills the host pool) and L1's two streamed
+    pages exceed the one page the short would add, so admitting it parks
+    L1, whose pages the host cannot absorb: L1's spill retires to disk.
+
+    The shorts' TPOT is ``test_async_data_plane._tpot_short``'s analytic
+    rule (between the iterations that stream one page and two), rounded
+    up to the decode record's SLO grid (``SLO_GRANULARITY_S``, 2 ms). At
+    full width one page costs about 9 us of a 15 ms iteration at interval
+    6, so the rule itself lands inside one grid step, and the record would
+    reject the shorts (it needs interval 7 for that bucket). S0 and L1 get
+    a TPOT a hundred times the two-page iteration."""
+    pb, seq = eng.kv.page_bytes, eng.ecfg.max_seq
+    dt_1 = iter_time_with_interval_kv(eng.times_fn(4, seq, "decode"),
+                                      eng.interval, 1 * pb)
+    dt_2 = iter_time_with_interval_kv(eng.times_fn(1, seq, "decode"),
+                                      eng.interval, 2 * pb)
+    assert dt_1 < dt_2
+    short = (math.ceil((dt_1 + dt_2) / 2 / SLO_GRANULARITY_S)
+             * SLO_GRANULARITY_S)
+    loose = 100 * dt_2
+    vocab = eng.cfg.vocab_size
+
+    def req(rid, plen, new, tpot):
+        return Request(rid=rid, prompt=rng.integers(0, vocab, plen).astype(
+            np.int32), max_new_tokens=new, ttft_slo_s=10.0, tpot_slo_s=tpot)
+
+    first = [req(9, 8, 24, loose), req(0, 32, 32, loose)]
+    return first, [req(i, 8, 8, short) for i in range(1, 5)]
+
+
+def serve_disk_trace(eng, first: list[Request], later: list[Request]
+                     ) -> dict:
+    """Submit ``first``, step twice, submit ``later`` and serve to the end
+    (``run`` drains the rest and completes every staged copy)."""
+    for r in first:
+        eng.submit(r)
+    eng.step()
+    eng.step()
+    for r in later:
+        eng.submit(r)
+    return eng.run([])
 
 
 def _union_us(spans: list[tuple[float, float]]) -> float:
@@ -147,14 +238,22 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=4)
     ap.add_argument("--out", default="chiprun_out/profile_engine")
-    ap.add_argument("--incremental", action="store_true",
-                    help="profile the incremental chunk-prefill steps")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--incremental", action="store_true",
+                      help="profile the incremental chunk-prefill steps")
+    mode.add_argument("--disk", action="store_true",
+                      help="profile the disk-pressure trace with the async "
+                           "copy-stage data plane")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_engine needs a CUDA device")
     out = Path(args.out)
-    summary = (profile_incremental(out) if args.incremental
-               else profile_decode(args.iters, out))
+    if args.incremental:
+        summary = profile_incremental(out)
+    elif args.disk:
+        summary = profile_disk(out)
+    else:
+        summary = profile_decode(args.iters, out)
     print(json.dumps(summary))
     return summary
 
@@ -232,6 +331,41 @@ def profile_incremental(out: Path) -> dict:
         "prompt_tokens": sum(r.prompt_len for r in reqs),
         "chunk_pages_streamed": eng.chunk_pages_streamed,
         "chunk_ms_engine_median": float(np.median(chunk_ms)),
+    })
+    return summary
+
+
+def profile_disk(out: Path) -> dict:
+    warm = disk_engine(async_plane=True)      # builds every kernel
+    serve_disk_trace(warm, *disk_requests(warm, np.random.default_rng(0)))
+    eng = disk_engine(async_plane=True, params=warm.params)
+    del warm
+    first, later = disk_requests(eng, np.random.default_rng(0))
+    torch.cuda.synchronize()
+    result = {}
+
+    def steps():
+        result.update(serve_disk_trace(eng, first, later))
+        return len(eng.trace.iterations)
+
+    summary = _profile(eng, steps, out, "disk_trace.json")
+    plane, foot = eng.data_plane, eng.trace.footer()
+    summary.update({
+        "finished": result["finished"],
+        "preemptions": result["preemptions"],
+        "disk_demotions": result["disk_demotions"],
+        "disk_stagings": result["disk_stagings"],
+        "prefetch_pages": result["prefetch_pages"],
+        "disk_out_pages": eng.kv.disk_out_pages_total,
+        "disk_in_pages": eng.kv.disk_in_pages_total,
+        "staged_issued_pages": foot["staged_issued_pages_total"],
+        "staged_completed_pages": foot["staged_completed_pages_total"],
+        # wall seconds of the plane's copies: on the serving thread (a
+        # device->host copy also waits for the kernels queued before it)
+        # and on the background worker
+        "blocking_copy_s": plane.blocking_copy_s,
+        "background_copy_s": plane.background_copy_s,
+        "decode_ms_engine_median": float(np.median(eng.decode_ms)),
     })
     return summary
 

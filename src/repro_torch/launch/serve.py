@@ -8,11 +8,15 @@ Builds the offline performance record (the analyzer's two-stage step 1),
 starts an engine on ``--device`` (default cuda), replays a synthetic
 request stream, and reports SLO attainment + throughput with the
 reference's summary keys. ``--prefill-chunk-tokens N --incremental-prefill``
-serves long prompts in chunks through the paged chunk-prefill kernel. Flags
-of paths not ported yet exit with an error that names their ROADMAP item:
+serves long prompts in chunks through the paged chunk-prefill kernel.
+``--disk-kv-gb`` adds the disk (NVMe) KV tier below the host pool (RAM, or
+a file with ``--disk-backing-path``), and ``--async-data-plane`` queues
+its page copies for the next iteration boundary; the summary's
+``data_plane`` then also reports the wall seconds the copies blocked the
+serving thread and those the background worker absorbed. Flags of paths
+not ported yet exit with an error that names their ROADMAP item:
 ``--fleet``/``--peer``/``--disagg`` (and the fleet's ``--router``/
-``--prefill-instances``/``--decode-instances``),
-``--disk-kv-gb``/``--disk-backing-path`` and ``--async-data-plane``.
+``--prefill-instances``/``--decode-instances``).
 """
 from __future__ import annotations
 
@@ -69,8 +73,9 @@ def main(argv=None) -> dict:
                     help="disk link bandwidth in GB/s (its traffic gets "
                          "its own term in the SLO latency model)")
     ap.add_argument("--disk-backing-path", default=None,
-                    help="file path for the disk pool (np.memmap); default "
-                         "keeps a RAM buffer standing in for NVMe")
+                    help="file path for the disk pool (a shared file "
+                         "mapping); default keeps a RAM buffer standing in "
+                         "for NVMe")
     ap.add_argument("--page-size", type=int, default=16,
                     help="KV page size in tokens (the paged decode kernel's "
                          "block granularity)")
@@ -177,14 +182,13 @@ def main(argv=None) -> dict:
         (args.disagg or args.prefill_instances != 1
          or args.decode_instances != 1, "--disagg",
          "Queue A item 7 (disaggregated fleet)"),
-        (args.disk_kv_gb > 0 or args.disk_backing_path is not None,
-         "--disk-kv-gb", "Queue A item 6 (disk tier)"),
-        (args.async_data_plane, "--async-data-plane",
-         "Queue A item 6 (copy-stage data plane)"),
     ]
     for hit, flag, item in refused:
         if hit:
             ap.error(f"{flag} is not ported yet: ROADMAP {item}")
+    if args.disk_kv_gb > 0 and args.host_kv_gb <= 0:
+        ap.error("--disk-kv-gb requires a host tier to stage through: "
+                 "set --host-kv-gb > 0")
     if args.incremental_prefill and args.prefix_dedup:
         ap.error("--incremental-prefill is incompatible with "
                  "--prefix-dedup (shared prompt frames would need COW "
@@ -265,8 +269,17 @@ def main(argv=None) -> dict:
     summary["cow_events"] = eng.cow_events
     summary["scheduler"] = {"preemption": args.preemption,
                             "prefill_chunk_tokens": args.prefill_chunk_tokens}
+    plane = eng.data_plane
     summary["data_plane"] = {"async": args.async_data_plane,
-                             "incremental_prefill": args.incremental_prefill}
+                             "incremental_prefill": args.incremental_prefill,
+                             # wall seconds of the disk tier's page copies:
+                             # on the serving thread (a device->host copy
+                             # also waits for the kernels queued before it)
+                             # and on the background worker
+                             "blocking_copy_s":
+                                 plane.blocking_copy_s if plane else 0.0,
+                             "background_copy_s":
+                                 plane.background_copy_s if plane else 0.0}
     summary["arrival"] = {"process": args.arrival_process,
                           "rate_per_s": args.arrival_rate,
                           "honored": not args.submit_all,

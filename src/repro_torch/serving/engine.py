@@ -47,13 +47,20 @@ chunk-prefill kernel against the request's resident pages (host-tier pages
 stream through the slab and the pages the chunk writes stream back), so
 every prompt token is computed once.
 
-Not ported yet (the constructor refuses them): the disk KV tier and the
-async copy-stage data plane (ROADMAP Queue A item 6), and the fleet roles
-with cross-instance migration and handoff (Queue A item 7).
+With ``disk_kv_bytes`` a disk (NVMe) tier sits below the host pool: a CPU
+tensor, file-backed when ``disk_backing_path`` is set. Every copy the
+allocator's disk, park, promote and direct hooks fire goes through the
+copy-stage engine (``serving.data_plane``), at once or, with
+``async_data_plane``, queued in planning order and drained at the next
+iteration boundary with host->disk retirements on a background thread.
+
+Not ported yet (the constructor refuses them): the fleet roles with
+cross-instance migration and handoff (ROADMAP Queue A item 7).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import numpy as np
@@ -76,8 +83,9 @@ from repro_torch.models.model import Model
 from repro_torch.models.spec import tree_map
 from repro_torch.models.transformer import pattern_info
 from repro_torch.serving.autotune import IntervalTuner, TunerGauges
+from repro_torch.serving.data_plane import CopyStageEngine
 from repro_torch.serving.kv_cache import PageConfig, PagedKVAllocator
-from repro_torch.serving.kv_offload import (DEVICE, HOST, LinkSpec,
+from repro_torch.serving.kv_offload import (DEVICE, DISK, HOST, LinkSpec,
                                             SwapScheduler, TieredKVAllocator)
 from repro_torch.serving.request import Request, State
 from repro_torch.serving.scheduler import (ActiveInfo, IterationOutcome,
@@ -125,8 +133,8 @@ class EngineConfig:
     # the iteration-latency model (it never rides the PCIe budget).
     disk_bw_bytes_s: float = 3e9
     disk_latency_s: float = 1e-4
-    # Optional file path for the disk pool's backing store (np.memmap);
-    # None keeps a RAM buffer standing in for NVMe.
+    # Optional file path for the disk pool's backing store (a shared file
+    # mapping); None keeps a RAM buffer standing in for NVMe.
     disk_backing_path: str | None = None
     # Async data plane (serving.data_plane): queue the allocator's copy
     # hooks in planning order and drain them at the next iteration
@@ -178,12 +186,6 @@ class ServingEngine:
         asks for the CPU). ``params``: an initialized parameter tree (the
         tests inject weights bridged from the reference); by default the
         weights are drawn from ``torch.Generator`` seed 0."""
-        for flag, item in (("disk_kv_bytes", "Queue A item 6 (disk tier)"),
-                           ("async_data_plane",
-                            "Queue A item 6 (copy-stage data plane)")):
-            if getattr(ecfg, flag):
-                raise NotImplementedError(
-                    f"EngineConfig.{flag} is not ported yet: ROADMAP {item}")
         if ecfg.role != "mixed":
             raise NotImplementedError(
                 f"instance role {ecfg.role!r} belongs to the fleet, which is "
@@ -286,6 +288,33 @@ class ServingEngine:
             (self.kv.host.total_pages, *self.page_shape), dtype=torch.bfloat16,
             pin_memory=self.device.type == "cuda")
             if self.kv.host.total_pages > 0 else None)
+        # disk-tier data plane: every host<->disk accounting move fires a
+        # copy hook into the copy-stage engine, which executes it at once
+        # (sync mode) or queues it in planning order for the next
+        # iteration-boundary drain (async mode)
+        self.disk_pool = (self._disk_pool_buffer()
+                          if self.kv.disk.total_pages > 0 else None)
+        self.data_plane: CopyStageEngine | None = None
+        if self.disk_pool is not None:
+            assert self.host_pool is not None, \
+                "a disk KV tier requires a host tier to stage through"
+            self.data_plane = CopyStageEngine(
+                host_pool=self.host_pool, disk_pool=self.disk_pool,
+                get_pool=lambda: self.pool,
+                set_pool=self._set_pool,
+                async_mode=ecfg.async_data_plane)
+            self.kv.disk_copy = self._disk_page_copy
+            # resume staging chains disk pages through host transit frames:
+            # its h2d promotion legs must read those frames in planning
+            # order, before the next staging overwrites them; park's d2h
+            # legs must likewise land before a same-pass demotion retires
+            # the parked frames to NVMe. The copy-stage engine preserves
+            # exactly that order (FIFO queue, duplicate-dst batch flushes).
+            self.kv.promote_copy = self._promote_page_copy
+            self.kv.park_copy = self._park_page_copy
+            # disk->device staging that skips the host bounce buffer
+            # whenever a device frame is free
+            self.kv.direct_copy = self._direct_page_copy
         self.prefetch_pages_total = 0
 
         if ecfg.incremental_prefill and ecfg.prefix_dedup:
@@ -395,8 +424,13 @@ class ServingEngine:
         # physical pool mirrors the accounting moves: demoted frames are
         # copied out while still intact, then surviving frames permute.
         res = self.kv.resize_device(max(int(weight_free_new), 0))
+        if self.data_plane is not None:
+            # any retire-to-disk ops the resize staged must read their host
+            # frames before the demotion copies below can reuse them
+            self.data_plane.drain()
         if res.demotions:
             assert self.host_pool is not None
+            self._guard_host_writes([m.dst_page for m in res.demotions])
             ops.copy_pages_to_host(self.pool,
                                    [m.src_page for m in res.demotions],
                                    self.host_pool,
@@ -645,6 +679,12 @@ class ServingEngine:
         prefill for non-chunked ones). Chunk compute is applied by ``step``
         so its time rides the decode iteration."""
         plan = self.scheduler.plan(self._view())
+        if self.data_plane is not None:
+            # iteration boundary for the copy-stage engine: complete last
+            # iteration's background retirements, then execute every op the
+            # plan just staged — BEFORE any same-plan prefill scatters into
+            # frames those ops still read (transit-frame reuse)
+            self.data_plane.drain()
         self.rejected.extend(plan.rejections)
         for req in plan.rejections:
             self.trace.event("reject", req.rid, self.clock_s,
@@ -722,17 +762,113 @@ class ServingEngine:
             self.pos[slot] = req.resume_pos
             self.active[slot] = True
 
+    def _disk_pool_buffer(self) -> torch.Tensor:
+        """The disk tier's page pool, a CPU tensor: in RAM, standing in for
+        NVMe, or mapped onto ``disk_backing_path`` (created or truncated,
+        so it starts zeroed like the reference's ``np.memmap`` in mode
+        "w+"; the file holds the pages' bf16 bit patterns)."""
+        shape = (self.kv.disk.total_pages, *self.page_shape)
+        path = self.ecfg.disk_backing_path
+        if path is None:
+            return torch.zeros(shape, dtype=torch.bfloat16)
+        n = math.prod(shape)
+        with open(path, "wb") as f:
+            f.truncate(2 * n)
+        return torch.from_file(path, shared=True, size=n,
+                               dtype=torch.bfloat16).view(shape)
+
+    def _set_pool(self, pool) -> None:
+        """Device-pool setter for the copy-stage engine (the port's copies
+        update the pool in place and hand the same tensor back)."""
+        self.pool = pool
+
+    def _guard_host_writes(self, frames) -> None:
+        """Engine-side host-pool writes must wait out any in-flight
+        background disk retirement still reading those frames."""
+        if self.data_plane is not None:
+            self.data_plane.guard_host_writes(frames)
+
+    def _issue_prefetch(self) -> None:
+        """Async mode: stage the oldest parked request's disk pages into
+        FREE host frames ahead of its scheduler-predicted resume (parked
+        requests re-enter oldest-first, so the queue head is the next
+        resume candidate). The ops queue now and drain at the next
+        iteration boundary; the NVMe reads ride the next iteration's disk
+        term through the allocator's pending counters — by the time the
+        resume is planned, its staging is already host-resident and its
+        shortfall shrinks accordingly."""
+        if (self.data_plane is None or not self.ecfg.async_data_plane
+                or not self.scheduler.preempted):
+            return
+        req = self.scheduler.preempted[0]
+        depth = min(self.kv.host.free_pages,
+                    max(self.ecfg.prefetch_pages_per_boundary, 1))
+        if depth <= 0:
+            return
+        self.prefetch_pages_total += self.kv.prefetch_from_disk(req.rid,
+                                                                depth)
+
+    def _disk_page_copy(self, src_tier: str, src_page: int,
+                        dst_tier: str, dst_page: int) -> None:
+        """NVMe data plane (TieredKVAllocator.disk_copy hook): fired by the
+        allocator the moment a host<->disk accounting move lands. Staged
+        through the copy-stage engine — executed at once in sync mode,
+        queued in planning order otherwise. Byte traffic is charged to the
+        disk link's own latency term via the allocator's pending disk
+        counters — never to PCIe."""
+        assert self.data_plane is not None
+        if src_tier == HOST and dst_tier == DISK:
+            self.data_plane.stage("h2disk", src_page, dst_page)
+        elif src_tier == DISK and dst_tier == HOST:
+            self.data_plane.stage("disk2h", src_page, dst_page)
+        else:
+            raise ValueError(f"disk copy between {src_tier} and {dst_tier}")
+
+    def _direct_page_copy(self, src_tier: str, src_page: int,
+                          dst_tier: str, dst_page: int) -> None:
+        """Direct disk<->device staging (TieredKVAllocator.direct_copy
+        hook): the page bypasses the host bounce buffer entirely, so no
+        host-transit bytes are moved — or billed to the PCIe link."""
+        assert self.data_plane is not None
+        if src_tier == DISK and dst_tier == DEVICE:
+            self.data_plane.stage("disk2d", src_page, dst_page)
+        elif src_tier == DEVICE and dst_tier == DISK:
+            self.data_plane.stage("d2disk", src_page, dst_page)
+        else:
+            raise ValueError(
+                f"direct copy between {src_tier} and {dst_tier}")
+
+    def _park_page_copy(self, src_dev_frame: int,
+                        dst_host_page: int) -> None:
+        """d2h leg of a park (TieredKVAllocator.park_copy hook, wired with
+        the disk tier): staged in planning order so a demotion planned
+        later in the SAME pass reads the parked bytes, not the host
+        frame's previous content. ``_apply_preemptions`` skips its
+        apply-time batch copy when this hook is wired."""
+        self.data_plane.stage("d2h", src_dev_frame, dst_host_page)
+
+    def _promote_page_copy(self, src_host_page: int,
+                           dst_dev_frame: int) -> None:
+        """h2d leg of a disk-staged resume (TieredKVAllocator.promote_copy
+        hook): staged in planning order so a host transit frame is read
+        before the next NVMe staging reuses it. ``_apply_resumes`` skips
+        its apply-time batch copy when this hook is wired — the bytes
+        already moved (or sit queued ahead of the reuse)."""
+        self.data_plane.stage("h2d", src_host_page, dst_dev_frame)
+
     def _trace_footer(self) -> dict:
         """Counters snapshot the trace auditor cross-checks whole-trace
         conservation against (allocator + swap-scheduler cumulative totals
         minus what is still pending at export time)."""
+        plane = self.data_plane
         return {
             "page_bytes": self.kv.page_bytes,
             "clock_s": self.clock_s,
-            # no copy-stage data plane in this port yet: nothing is staged
-            "staged_issued_pages_total": 0,
-            "staged_completed_pages_total": 0,
-            "staged_inflight_pages": 0,
+            "staged_issued_pages_total":
+                plane.issued_pages_total if plane else 0,
+            "staged_completed_pages_total":
+                plane.completed_pages_total if plane else 0,
+            "staged_inflight_pages": plane.inflight_pages() if plane else 0,
             "disk_direct_pages_total": self.kv.disk_direct_pages_total,
             "prefetch_pages_total": self.prefetch_pages_total,
             "disk_in_pages_total": self.kv.disk_in_pages_total,
@@ -889,6 +1025,10 @@ class ServingEngine:
                                     dtype=torch.bfloat16)
         refs = self.kv.refs(req.rid)
         deduped = set(self.kv.dedup_hit_pages(req.rid))
+        self._guard_host_writes(
+            [refs[i].page for i in range(start_page, min(vals.shape[0],
+                                                         len(refs)))
+             if i not in deduped and refs[i].tier == HOST])
         dev_frames, dev_pages = [], []
         for i in range(start_page, vals.shape[0]):
             if i in deduped:
@@ -968,6 +1108,7 @@ class ServingEngine:
         if writeback:
             # the decode step of this iteration reuses the slab from
             # slab_base: the chunk's dirty pages go home before it returns
+            self._guard_host_writes([hp for hp, _ in writeback])
             got = ops.gather_kv_pages(self.pool,
                                       [f for _, f in writeback]).cpu()
             for (host_slot, _), val in zip(writeback, got):
@@ -1136,6 +1277,8 @@ class ServingEngine:
         if not moves:
             return 0.0, 0.0
         self.cow_events += len(moves)
+        self._guard_host_writes([m.dst.page for m in moves
+                                 if m.dst.tier == HOST])
         cow_in = cow_out = 0.0
         dd_src: list[int] = []
         dd_dst: list[int] = []
@@ -1239,6 +1382,10 @@ class ServingEngine:
                     tokens_emitted=prefill_tokens,
                     preemptions=len(plan.preemptions),
                     resumes=len(plan.resumes)))
+            self._issue_prefetch()
+            st_issued, st_completed = (
+                self.data_plane.take_iteration_counters()
+                if self.data_plane else (0, 0))
             self.trace.add_iteration(IterationRecord(
                 index=len(self.trace.iterations), t_start_s=t_start,
                 t_end_s=self.clock_s, dt_s=dt_rec, interval=self.interval,
@@ -1251,6 +1398,8 @@ class ServingEngine:
                 idle_wait_s=idle_wait, mig_wait_s=mig_wait,
                 mig_in_bytes=mig_in_b, mig_out_bytes=mig_out_b,
                 certified_dt_s=plan.certified_dt_s,
+                staged_issued_pages=st_issued,
+                staged_completed_pages=st_completed,
                 occupancy=self.kv.occupancy(),
                 reserve_pages=self.kv.n_reserve_frames()))
             return
@@ -1308,6 +1457,7 @@ class ServingEngine:
             dev(pos_in), self.pool, dev(bt), dev(cl), dev(wf), dev(wo))
         logits = logits.float().cpu().numpy()
         if writeback:
+            self._guard_host_writes([hs for hs, _ in writeback])
             got = ops.gather_kv_pages(self.pool,
                                       [f for _, f in writeback]).cpu()
             for (host_slot, _), val in zip(writeback, got):
@@ -1366,6 +1516,9 @@ class ServingEngine:
             dt_s=dt, finished_rids=finished_rids, tokens_emitted=tokens_out,
             chunks_run=len(plan.chunks), preemptions=len(plan.preemptions),
             resumes=len(plan.resumes)))
+        self._issue_prefetch()
+        st_issued, st_completed = (self.data_plane.take_iteration_counters()
+                                   if self.data_plane else (0, 0))
         self.trace.add_iteration(IterationRecord(
             index=len(self.trace.iterations), t_start_s=t_start,
             t_end_s=self.clock_s, dt_s=dt, interval=self.interval,
@@ -1398,6 +1551,8 @@ class ServingEngine:
             mig_in_bytes=mig_in_b, mig_out_bytes=mig_out_b,
             link_bw_bytes_s=link_bandwidth(times),
             certified_dt_s=plan.certified_dt_s,
+            staged_issued_pages=st_issued,
+            staged_completed_pages=st_completed,
             occupancy=self.kv.occupancy(),
             reserve_pages=self.kv.n_reserve_frames(),
             gauges=[SlotGauge(rid=req.rid, slot=slot,
@@ -1449,6 +1604,10 @@ class ServingEngine:
                 break
             self.step(peers=peers, link_bw=link_bw)
             it += 1
+        if self.data_plane is not None:
+            # run boundary: every staged op must have physically landed
+            # before anyone reads the pools or exports the trace footer
+            self.data_plane.sync()
         done = [r.metrics() for r in self.finished]
         total_tokens = sum(m["tokens"] for m in done)
         delays = [m["queue_delay_s"] for m in done]

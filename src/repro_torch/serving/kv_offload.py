@@ -703,11 +703,14 @@ class TieredKVAllocator:
         def rollback():
             # undo this call's tail allocations so the refs list still
             # matches the request's token count (demotions stay: the data
-            # plane may already have copied them)
+            # plane may already have copied them). A tail page this call
+            # added may itself have been demoted by a later swap_out, so
+            # each is released from the tier it sits on now
             for p in reversed(added):
-                self.device.release_pages(rid, [p])
                 ref = self._refs[rid].pop()
-                assert ref.tier == DEVICE and ref.page == p
+                assert ref.tier in (DEVICE, HOST)
+                assert ref.tier == HOST or ref.page == p
+                self.pool_of(ref.tier).release_pages(rid, [ref.page])
             return None
 
         for _ in range(need):

@@ -16,8 +16,8 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 VERBATIM = sorted(
     [f"configs/{p.name}" for p in (SRC / "repro" / "configs").glob("*.py")]
     + ["core/interval.py", "core/record.py", "core/slo.py",
-       "core/coordinator.py", "serving/kv_cache.py", "serving/kv_offload.py",
-       "serving/request.py", "serving/scheduler.py", "serving/autotune.py",
+       "core/coordinator.py", "serving/kv_cache.py", "serving/request.py",
+       "serving/scheduler.py", "serving/autotune.py",
        "serving/telemetry.py", "data/workload.py"])
 
 # module -> (reason, lines only the reference has, marker of added lines)
@@ -33,6 +33,17 @@ EDITED = {
         {"import jax.numpy as jnp", "import numpy as np",
          "from repro_torch.models import layers as L", ""},
         re.compile(r"^$")),
+    "serving/kv_offload.py": (
+        "TieredKVAllocator.extend's rollback releases each tail page from "
+        "the tier it sits on now: a later swap_out of the same call may have "
+        "demoted a page the call just added, and releasing it from the "
+        "device pool raised ValueError (ROADMAP Queue C 5)",
+        {"            # plane may already have copied them)",
+         "                self.device.release_pages(rid, [p])",
+         "                assert ref.tier == DEVICE and ref.page == p"},
+        re.compile(r"^# |^assert ref\.tier (in \(DEVICE, HOST\)|== HOST or "
+                   r"ref\.page == p)$|^self\.pool_of\(ref\.tier\)\."
+                   r"release_pages\(rid, \[ref\.page\]\)$")),
 }
 
 

@@ -352,3 +352,90 @@ def test_interval_switch_frees_previous_placement(cuda):
         assert want <= got <= want + 512 * n, (iv, got, want)
         held[iv] = got
     assert held[1] < held[2] < held[NO_OFFLOAD]
+
+
+def _small_disk_params():
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduce_config
+    from repro_torch.models.model import build_model
+
+    cfg = reduce_config(get_config("qwen2.5-3b"), d_model=256, heads=4,
+                        layers=8, d_ff=512, vocab=1024)
+    return cfg, build_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+
+
+@pytest.mark.cuda
+def test_disk_trace_sync_and_async_on_the_card(cuda):
+    """``profile_engine.disk_engine``'s pressure trace on the card at a
+    small width, with the sync and the async copy-stage plane: parks retire
+    to disk and stage back, the decode and flash kernels run, the pools end
+    empty, and the two runs give the same tokens and modeled clock."""
+    from repro_torch.launch.profile_engine import (disk_engine, disk_requests,
+                                                   serve_disk_trace)
+
+    cfg, params = _small_disk_params()
+    runs = {}
+    for async_plane in (False, True):
+        eng = disk_engine(cuda, async_plane=async_plane, params=params,
+                          cfg=cfg)
+        assert eng.pool.is_cuda and eng.host_pool.is_pinned()
+        assert not eng.disk_pool.is_cuda
+        da, fa = DA.launches, FA.launches
+        out = serve_disk_trace(eng, *disk_requests(
+            eng, np.random.default_rng(5)))
+        assert DA.launches > da and FA.launches > fa
+        assert out["finished"] == 6 and out["preemptions"] > 0
+        assert out["disk_demotions"] > 0 and out["disk_stagings"] > 0
+        assert eng.trace.audit().ok
+        assert eng.kv.device.used_pages == eng.kv.host.used_pages \
+            == eng.kv.disk.used_pages == 0
+        foot = eng.trace.footer()
+        assert foot["staged_issued_pages_total"] \
+            == foot["staged_completed_pages_total"] > 0
+        runs[async_plane] = eng
+    assert {r.rid: r.generated for r in runs[True].finished} == \
+        {r.rid: r.generated for r in runs[False].finished}
+    assert runs[True].clock_s == runs[False].clock_s
+
+
+@pytest.mark.cuda
+def test_disk_file_round_trip_on_the_card(cuda, tmp_path):
+    """L1's pages (two on the host tier, two on the card) retire to a
+    file-backed disk pool, the file holds their bf16 bits, and a resume
+    (with the host pool cleared) stages the same bits back onto the card
+    and the host tier."""
+    from repro_torch.launch.profile_engine import disk_engine, disk_requests
+
+    cfg, params = _small_disk_params()
+    path = tmp_path / "kv_disk.bin"
+    eng = disk_engine(cuda, backing_path=str(path), params=params, cfg=cfg)
+    first, _ = disk_requests(eng, np.random.default_rng(1))
+    for r in first:
+        eng.submit(r)
+    eng.step()
+    eng.step()
+    s0, l1 = (r.rid for r in first)
+    bits = lambda t: t.view(torch.int16).cpu().numpy().copy()
+    refs = eng.kv.refs(l1)
+    assert {r.tier for r in refs} == {"device", "host"}
+    before = [bits(eng.pool[r.page] if r.tier == "device"
+                   else eng.host_pool[r.page]) for r in refs]
+    eng.kv.demote_to_disk(l1, len(eng.kv.host_pages_of(l1)))
+    assert eng.kv.park(l1, [s0]) is not None
+    eng.kv.demote_to_disk(l1, 99)
+    frames = [r.page for r in eng.kv.refs(l1)]
+    assert all(r.tier == "disk" for r in eng.kv.refs(l1))
+    raw = np.fromfile(path, dtype=np.int16).reshape(eng.kv.disk.total_pages,
+                                                    -1)
+    for f, b in zip(frames, before):
+        np.testing.assert_array_equal(raw[f], b.ravel())
+    eng.host_pool.zero_()
+    assert eng.kv.resume(l1) is not None
+    after = eng.kv.refs(l1)
+    assert "disk" not in {r.tier for r in after}
+    assert "device" in {r.tier for r in after}
+    for r, b in zip(after, before):
+        page = eng.pool[r.page] if r.tier == "device" else \
+            eng.host_pool[r.page]
+        np.testing.assert_array_equal(bits(page), b)
+    eng.kv.check_invariants()

@@ -42,11 +42,14 @@ BATCHES, SEQS = (1, 2, 4), (16, 32, 64)
 
 
 def mk_port_engine(jeng, *, extra_device_pages=None, hbm_gb=None,
-                   page_size=16, **_):
+                   page_size=16, port_ecfg=None, **build):
     """The port's engine with the reference builder's sizing logic
     (``tests/_engine_builders.py``), the reference engine's config and its
-    weights, bridged bit for bit."""
-    cfg = reduce_config(get_config("qwen2.5-3b"), **DIMS)
+    weights, bridged bit for bit. The widths are ``DIMS`` unless ``build``
+    names others; ``port_ecfg`` overrides config fields that must differ
+    between the two engines (a disk backing file)."""
+    dims = {k: build.get(k, v) for k, v in DIMS.items()}
+    cfg = reduce_config(get_config("qwen2.5-3b"), **dims)
     model = build_model(cfg)
     an = PerformanceAnalyzer(cfg, A10, measure="model")
     kv_tok = max(costs.kv_cache_bytes(cfg, 1, 1, model.virtual_kv), 1)
@@ -57,7 +60,8 @@ def mk_port_engine(jeng, *, extra_device_pages=None, hbm_gb=None,
             costs.unit_weight_bytes(cfg)) + extra_device_pages * page_bytes
     else:
         hbm = hbm_gb * 1e9
-    ecfg = EngineConfig(**dataclasses.asdict(jeng.ecfg))
+    ecfg = EngineConfig(**{**dataclasses.asdict(jeng.ecfg),
+                           **(port_ecfg or {})})
     assert ecfg.hbm_budget_bytes == hbm
     slos = [0.002 * k for k in range(1, 30)]
     rec_p = an.generate_record(slos, list(BATCHES), list(SEQS), "prefill")

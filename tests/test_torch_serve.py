@@ -1,6 +1,7 @@
 """The port's serve CLI on the CPU: same summary keys as the reference,
-the paged decode path, incremental chunked prefill, and the flags of paths
-not ported yet refused."""
+the paged decode path, incremental chunked prefill, the disk KV tier and
+the async copy-stage data plane, and the flags of paths not ported yet
+refused."""
 from __future__ import annotations
 
 import pytest
@@ -42,15 +43,76 @@ def test_metrics_out_audits_clean(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--fleet", "2"], ["--peer"], ["--disagg"], ["--disk-kv-gb", "0.001"],
-    ["--async-data-plane"], ["--prefill-instances", "2"],
-    ["--router", "round_robin"], ["--disk-backing-path", "x"],
+    ["--fleet", "2"], ["--peer"], ["--disagg"], ["--prefill-instances", "2"],
+    ["--router", "round_robin"],
 ])
 def test_unported_flags_refused(flag, capsys):
     with pytest.raises(SystemExit) as exc:
         serve.main(ARGS + flag)
     assert exc.value.code == 2
     assert "ROADMAP" in capsys.readouterr().err
+
+
+DISK = ["--host-kv-gb", "0.0001", "--disk-kv-gb", "0.0001", "--preemption"]
+
+
+def test_three_tier_cli_matches_reference(capsys):
+    """``--disk-kv-gb`` runs the third tier: the summary reports three
+    tiers and the disk peak, and the modeled clock and link bytes equal
+    the reference CLI's on the same flags."""
+    pytest.importorskip("jax")
+    from repro.launch import serve as ref_serve
+
+    got = _summary(serve.main, ARGS + DISK, capsys)
+    want = _summary(ref_serve.main, ARGS[2:] + DISK, capsys)
+    assert got["kv_tiers"] == want["kv_tiers"] == 3
+    assert "disk_kv_peak_pages" in got
+    assert got["data_plane"]["async"] is False
+    for key in ("finished", "rejected", "tokens", "wall_modeled_s",
+                "link_bytes", "host_kv_peak_pages", "disk_kv_peak_pages",
+                "disk_demotions", "disk_stagings", "preemptions"):
+        assert got[key] == want[key], key
+
+
+def test_async_data_plane_cli_tokens_equal_sync(monkeypatch, capsys):
+    """``--async-data-plane`` serves the same tokens and modeled clock as
+    the synchronous plane, and reports its copy wall counters."""
+    engines = []
+    build = serve.build_engine
+
+    def keep(*a, **kw):
+        engines.append(build(*a, **kw))
+        return engines[-1]
+
+    monkeypatch.setattr(serve, "build_engine", keep)
+    sync = _summary(serve.main, ARGS + DISK, capsys)
+    asyn = _summary(serve.main, ARGS + DISK + ["--async-data-plane"], capsys)
+    assert asyn["data_plane"]["async"] is True and asyn["kv_tiers"] == 3
+    assert asyn["data_plane"]["blocking_copy_s"] >= 0.0
+    assert asyn["data_plane"]["background_copy_s"] >= 0.0
+    assert asyn["wall_modeled_s"] == sync["wall_modeled_s"]
+    s_eng, a_eng = engines
+    assert a_eng.data_plane.async_mode and not s_eng.data_plane.async_mode
+    assert {r.rid: r.generated for r in a_eng.finished} == \
+        {r.rid: r.generated for r in s_eng.finished}
+    assert a_eng.data_plane.inflight_pages() == 0
+
+
+def test_disk_backing_path_cli(tmp_path, capsys):
+    """``--disk-backing-path`` maps the disk pool onto a file of the pool's
+    size (bf16 pages)."""
+    path = tmp_path / "kv_disk.bin"
+    got = _summary(serve.main, ARGS + DISK + ["--disk-backing-path",
+                                              str(path)], capsys)
+    assert got["kv_tiers"] == 3 and got["finished"] > 0
+    assert path.exists() and path.stat().st_size > 0
+
+
+def test_cli_refuses_disk_tier_without_host_tier(capsys):
+    with pytest.raises(SystemExit) as exc:
+        serve.main(ARGS + ["--disk-kv-gb", "0.001"])
+    assert exc.value.code == 2
+    assert "--host-kv-gb" in capsys.readouterr().err
 
 
 def test_profile_trace_summary_unions_device_spans():
@@ -109,9 +171,7 @@ def test_profile_trace_summary_paged_chunk_share():
     assert out["paged_decode_ms"] == pytest.approx(0.004)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("disk_kv_bytes", 1e6), ("async_data_plane", True), ("role", "prefill"),
-])
+@pytest.mark.parametrize("field,value", [("role", "prefill")])
 def test_engine_refuses_unported_settings(field, value):
     from repro_torch.configs import get_config
     from repro_torch.configs.reduced import reduce_config
@@ -122,6 +182,38 @@ def test_engine_refuses_unported_settings(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         serve.build_engine("x", reduce_config(get_config("qwen2.5-3b")), A10,
                            ecfg, [0.01], device="cpu")
+
+
+@pytest.mark.parametrize("async_plane", [False, True])
+def test_engine_accepts_disk_tier_and_async_plane(async_plane):
+    """The constructor builds the disk pool (a CPU bf16 tensor of the
+    tier's pages) and the copy-stage plane, and wires the allocator's copy
+    hooks into it; ``async_data_plane`` alone, without a disk tier, leaves
+    the plane out, as in the reference."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduce_config
+    from repro_torch.core.hardware import A10
+    from repro_torch.serving.engine import EngineConfig
+
+    cfg = reduce_config(get_config("qwen2.5-3b"))
+    base = dict(max_batch=2, max_seq=32, hbm_budget_bytes=1e9,
+                async_data_plane=async_plane)
+    eng = serve.build_engine("x", cfg, A10, EngineConfig(
+        host_kv_bytes=1e6, disk_kv_bytes=1e6, **base), [0.01], device="cpu")
+    plane = eng.data_plane
+    assert plane is not None and plane.async_mode is async_plane
+    assert plane.host_pool is eng.host_pool and plane.disk_pool is \
+        eng.disk_pool
+    assert eng.disk_pool.dtype == torch.bfloat16
+    assert eng.disk_pool.shape == (eng.kv.disk.total_pages, *eng.page_shape)
+    for hook in ("disk_copy", "park_copy", "promote_copy", "direct_copy"):
+        assert getattr(eng.kv, hook) is not None, hook
+    bare = serve.build_engine("y", cfg, A10, EngineConfig(**base), [0.01],
+                              device="cpu")
+    assert bare.data_plane is None and bare.disk_pool is None
+    assert bare._trace_footer()["staged_issued_pages_total"] == 0
 
 
 def test_engine_refuses_incremental_prefill_with_prefix_dedup():
