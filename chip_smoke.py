@@ -36,12 +36,27 @@ Phases, each fatal on failure:
    staged prefetch moved an NVMe charge, the reference's 2% bound with every
    SLO met) and conserved staged-page counters; then a park's pages through
    a file-backed disk pool and back, bit for bit.
-4. The CUDA engine in lockstep with the same engine on the CPU (the
+   The async run's drains are split from the outside into the wait for
+   the background worker, the device wait and the copies.
+4. The analyzer's wall-clock mode on the card (``profile_engine``):
+   ``calibration_phase`` measures the per-unit decode and prefill times
+   with their CVs and the pinned host link, fits ``H100_CALIBRATED`` from
+   them, and builds the smoke buckets' records with ``measure="wallclock"``
+   (the flash and paged decode kernels must run while it does), held
+   against the model-mode records of the preset this run fitted;
+   ``measured_engine_phase`` serves the smoke requests against those
+   records at the smallest TPOT SLO the engine can certify from them and
+   that preset as its clock (every request finishes, audit clean) and sets
+   the modeled verdict beside the measured stream time; ``baselines_phase``
+   runs Select-N, DeepSpeed (interval 1) and FlexGen decode steps on the
+   card with the same weights, beside the simulator's latency from the
+   measured unit time and link.
+5. The CUDA engine in lockstep with the same engine on the CPU (the
    kernels' plain versions) on a small model: at interval 2 with a host KV
    tier, once with one-shot prefills and once with incremental chunked
    prefill, and on the disk pressure trace with the async plane: equal
    iteration records, logits within the DualEngine tolerance.
-5. The port's serve CLI on the reduced default config: one-shot, incremental
+6. The port's serve CLI on the reduced default config: one-shot, incremental
    chunked prefill, and three KV tiers with the async data plane.
 
 Prints a JSON ``kernels`` line, then as its last line
@@ -51,8 +66,10 @@ when there is no GPU or any phase fails.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -590,6 +607,60 @@ def _page_bits(t: torch.Tensor) -> np.ndarray:
     return t.view(torch.int16).cpu().numpy().view(np.uint16).copy()
 
 
+@contextlib.contextmanager
+def drain_split(plane):
+    """Time three parts of an async copy-stage plane's drains from the
+    outside, leaving its counters and copies as they are: the waits for the
+    background worker (``_wait_bg``), the device wait inside each
+    device->host copy (a synchronize just before ``ops.copy_pages_to_host``,
+    whose ``.cpu()`` would wait for the same kernels), and the copies
+    themselves (``_exec_group`` less that device wait). Yields the dict the
+    seconds accumulate in; ``drain_s`` is the drains' whole wall time."""
+    from repro_torch.kernels import ops
+
+    split = {"drain_s": 0.0, "worker_wait_s": 0.0, "device_wait_s": 0.0,
+             "copy_s": 0.0}
+    inside = [False]
+    drain, wait_bg, exec_group = plane.drain, plane._wait_bg, plane._exec_group
+    to_host = ops.copy_pages_to_host
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            if not inside[0]:
+                return fn(*args, **kwargs)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                split[key] += time.perf_counter() - t0
+        return run
+
+    def drain_split_run():
+        inside[0] = True
+        try:
+            timed("drain_s", drain)()
+        finally:
+            inside[0] = False
+
+    def to_host_split(*args, **kwargs):
+        if inside[0]:
+            t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            split["device_wait_s"] += time.perf_counter() - t0
+        return to_host(*args, **kwargs)
+
+    plane.drain = drain_split_run
+    plane._wait_bg = timed("worker_wait_s", wait_bg)
+    plane._exec_group = timed("copy_s", exec_group)
+    ops.copy_pages_to_host = to_host_split
+    try:
+        yield split
+    finally:
+        del plane.drain, plane._wait_bg, plane._exec_group
+        ops.copy_pages_to_host = to_host
+        split["copy_s"] -= split["device_wait_s"]
+
+
 def disk_phase(card: str) -> dict:
     """The disk (NVMe) KV tier at full width: the pressure trace of
     ``profile_engine.disk_engine`` with the sync and the async copy-stage
@@ -608,8 +679,10 @@ def disk_phase(card: str) -> dict:
         first, later = disk_requests(eng, np.random.default_rng(0))
         DA.launches = FA.launches = PA.launches = 0
         t0 = time.perf_counter()
-        out = serve_disk_trace(eng, first, later)
-        torch.cuda.synchronize()
+        with (drain_split(eng.data_plane) if async_plane
+              else contextlib.nullcontext(None)) as split:
+            out = serve_disk_trace(eng, first, later)
+            torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches[async_plane] = {"paged_decode_attention": DA.launches,
                                  "flash_attention": FA.launches}
@@ -642,6 +715,8 @@ def disk_phase(card: str) -> dict:
             "run_s": run_s, "wall_modeled_s": out["wall_modeled_s"],
             "card": card,
         }
+        if split is not None:
+            summary["async_drain_split_s"] = split
         log("disk_engine: " + json.dumps(summary))
         n = len(first) + len(later)
         if out["finished"] != n or out["rejected"]:
@@ -760,6 +835,234 @@ def disk_phase(card: str) -> dict:
         if not (on_file and back):
             raise AssertionError("page bits changed through the disk file")
     return launches[True]
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the analyzer's wall-clock mode, the measured engine, the baselines
+# ---------------------------------------------------------------------------
+
+# decode steps per policy in baselines_phase (after one warm-up)
+BASELINE_STEPS = 10
+
+
+def calibration_phase(card: str) -> dict:
+    """The per-unit times, their CVs and the host link measured on the card,
+    the ``H100_CALIBRATED`` values fitted from them beside the committed
+    ones, then the wall-clock records of the smoke engine's buckets (the
+    flash and paged decode kernels must run while they are built) against
+    the model-mode records of the preset fitted in this run: cells that
+    differ, and the worst relative error of the calibrated unit time
+    against the measured one. Returns the calibration, that preset, the
+    records and each bucket's times."""
+    from repro_torch.core.analyzer import PerformanceAnalyzer
+    from repro_torch.core.hardware import H100_CALIBRATED
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.profile_engine import (SLO_GRID, calibrate,
+                                                   measured_records,
+                                                   smoke_config)
+
+    cfg, ecfg = smoke_config()
+    cal = calibrate(cfg)
+    # records, clock and the comparison below share this run's fit
+    hw = dataclasses.replace(H100_CALIBRATED, **cal["fitted"])
+    DA.launches = FA.launches = 0
+    t0 = time.perf_counter()
+    records, measured = measured_records(cfg, ecfg, hw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    launches = {"paged_decode_attention": DA.launches,
+                "flash_attention": FA.launches}
+    model = PerformanceAnalyzer(cfg, hw, measure="model")
+    cells, worst = {}, {}
+    for phase, rec in records.items():
+        ref = model.generate_record(SLO_GRID, rec.batches, rec.seqs, phase)
+        pairs = [(a, b) for k in rec.table
+                 for ra, rb in zip(rec.table[k], ref.table[k])
+                 for a, b in zip(ra, rb)]
+        cells[phase] = {"differ": sum(a != b for a, b in pairs),
+                        "of": len(pairs)}
+        errs = {f"{b}x{s}": model.measure_times(b, s, ph).t_compute_s
+                / mt.t_compute_s - 1.0
+                for (ph, b, s), mt in measured.items() if ph == phase}
+        key = max(errs, key=lambda k: abs(errs[k]))
+        worst[phase] = {"bucket": key, "rel_err": errs[key]}
+    committed = {k: getattr(H100_CALIBRATED, k) for k in cal["fitted"]}
+    summary = {
+        "decode_unit": cal["decode"], "prefill_unit": cal["prefill"],
+        "link": cal["link"], "fitted": cal["fitted"],
+        "committed_h100_calibrated": committed,
+        "record_build_s": build_s, "record_launches": launches,
+        "record_cells_wallclock_vs_calibrated_model": cells,
+        "worst_calibrated_unit_time_rel_err": worst,
+        "decode_unit_ms_by_bucket": {
+            f"{b}x{s}": mt.t_compute_s * 1e3
+            for (ph, b, s), mt in measured.items() if ph == "decode"},
+        "prefill_unit_ms_by_bucket": {
+            f"{b}x{s}": mt.t_compute_s * 1e3
+            for (ph, b, s), mt in measured.items() if ph == "prefill"},
+        "card": card,
+    }
+    log("calibration: " + json.dumps(summary))
+    for rec in records.values():
+        if rec.measure != "wallclock" or rec.hardware != H100_CALIBRATED.name:
+            raise AssertionError(f"{rec.phase} record: measure {rec.measure}, "
+                                 f"hardware {rec.hardware}")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"the wall-clock units did not run the CUDA "
+                             f"kernels: {launches}")
+    if not all(t.t_compute_s > 0 for t in measured.values()):
+        raise AssertionError("a unit time is not positive")
+    if not all(math.isfinite(v) and v > 0 for v in cal["fitted"].values()):
+        raise AssertionError(f"bad fitted values: {cal['fitted']}")
+    return {"cal": cal, "hw": hw, "records": records, "measured": measured}
+
+
+def measured_engine_phase(calibration: dict) -> dict:
+    """The smoke engine's configuration against the wall-clock records:
+    its TPOT SLO is the smallest grid SLO the engine can certify for batch
+    8 at seq 1024 (``measured_tpot_slo``: the decode record has an interval
+    within the smoke HBM budget there and in every smaller bucket, and the
+    clock's iteration fits; the clock is the preset fitted in this run).
+    Every request must finish with a clean audit. Prints the modeled verdict
+    and decode-iteration time beside the measured stream time and the share
+    of decode steps within the (8, 1024) bucket's own SLO in the record and
+    within the engine's SLO. Returns the SLO and the engine's weights."""
+    from repro_torch.core.interval import iter_time_with_interval_kv
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.profile_engine import (SLO_GRID, measured_engine,
+                                                   measured_tpot_slo,
+                                                   smoke_config,
+                                                   smoke_requests)
+
+    records = calibration["records"]
+    cfg, ecfg = smoke_config()
+    eng = measured_engine(records, calibration["hw"])
+    slo = measured_tpot_slo(records["decode"], eng.times_fn, cfg, ecfg)
+    # the (8, 1024) bucket's own smallest feasible SLO in the record alone,
+    # beside the one the engine can certify
+    max_i = eng._max_interval_now()
+    slo_own = next(x for x in SLO_GRID
+                   if records["decode"].lookup(x, 8, MAX_SEQ) <= max_i)
+    modeled_bound = iter_time_with_interval_kv(
+        eng.times_fn(8, MAX_SEQ, "decode"), max_i, ecfg.host_kv_bytes)
+    reqs = smoke_requests(cfg.vocab_size, 16, np.random.default_rng(0),
+                          tpot_slo_s=slo)
+    DA.launches = FA.launches = 0
+    t0 = time.perf_counter()
+    out = eng.run(reqs, submit_all=True)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {"paged_decode_attention": DA.launches,
+                "flash_attention": FA.launches}
+    report = eng.trace.audit()
+    modeled = [it.dt_s * 1e3 for it in eng.trace.iterations
+               if it.decode_batch > 0 and not it.admitted]
+    summary = {
+        "tpot_slo_s_8x1024_bucket_alone": slo_own,
+        "decode_steps_within_8x1024_bucket_slo": sum(
+            ms <= slo_own * 1e3 for ms in eng.decode_ms) / len(eng.decode_ms),
+        "tpot_slo_s": slo,
+        "decode_steps_within_tpot_slo": sum(
+            ms <= slo * 1e3 for ms in eng.decode_ms) / len(eng.decode_ms),
+        "modeled_iter_s_at_max_interval_host_tier_streaming": modeled_bound,
+        "max_interval": max_i, "slo_ok_modeled_clock": out["slo_ok"],
+        "modeled_decode_iter_ms_median": statistics.median(modeled),
+        "decode_stream_ms_median": statistics.median(eng.decode_ms),
+        "finished": out["finished"], "rejected": out["rejected"],
+        "tokens": out["tokens"],
+        "intervals": sorted({it.interval for it in eng.trace.iterations}),
+        "decode_iters": len(eng.decode_ms),
+        "prefill_stream_ms_median": statistics.median(eng.prefill_ms),
+        "host_weight_bytes": eng.host_weight_bytes,
+        "launches": launches, "audit_ok": report.ok,
+        "audit_checks": report.checks, "run_s": run_s,
+        "wall_modeled_s": out["wall_modeled_s"], "hardware": eng.hw.name,
+        "record_measure": eng.rec["decode"].measure,
+    }
+    log("measured_engine: " + json.dumps(summary))
+    if out["finished"] != len(reqs):
+        raise AssertionError(f"measured engine finished {out['finished']} "
+                             f"of {len(reqs)} requests")
+    if not report.ok:
+        raise AssertionError(f"trace audit: {report.violations[:5]}")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"a kernel never ran on the measured path: "
+                             f"{launches}")
+    for r in eng.finished:
+        if len(r.generated) != r.max_new_tokens or not all(
+                0 <= t < cfg.padded_vocab() for t in r.generated):
+            raise AssertionError(f"rid {r.rid}: bad tokens {r.generated}")
+    return {"slo": slo, "params": eng.params}
+
+
+def baselines_phase(calibration: dict, measured: dict) -> None:
+    """The paper's headline comparison on the card at batch 8, seq 1024,
+    with the measured engine's weights and TPOT SLO: Select-N (the wall-clock
+    record's interval), DeepSpeed ZeRO-Inference (interval 1) and SLO-aware
+    FlexGen (its decision over the datasheet preset, as the interval with
+    the same offloaded bytes). Each runs ``BASELINE_STEPS`` decode steps on
+    a runtime placed for its own plan; the simulator gets the measured unit
+    time and link. The three policies compute the same logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.interval import NO_OFFLOAD, LayerTimes
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.core.simulator import (schedule_for_interval,
+                                            simulate_iteration)
+    from repro_torch.launch.profile_engine import (baseline_intervals,
+                                                   policy_decode)
+    from repro_torch.models.transformer import pattern_info
+
+    cal = calibration["cal"]
+    cfg = get_config("qwen2.5-3b")
+    _, units = pattern_info(cfg)
+    slo = measured["slo"]
+    link = cal["link"]
+    t_unit = cal["decode"]["mean_s"]
+    t_transfer = link["latency_s"] + link["bytes"] / link["bw_bytes_s"]
+    times = LayerTimes(t_unit, t_transfer, units, link["bytes"],
+                       t_rest_s=0.1 * t_unit)
+    intervals, flexgen = baseline_intervals(
+        cfg, calibration["records"]["decode"], times, slo)
+    rows, logits = {}, {}
+    for policy, interval in intervals.items():
+        DA.launches = 0
+        res = policy_decode(cfg, measured["params"], interval,
+                            batch=8, seq=MAX_SEQ, steps=BASELINE_STEPS)
+        logits[policy] = res.pop("logits")
+        ms = statistics.median(res.pop("stream_ms"))
+        # Select-N's schedule at the interval, each group's copy issued at
+        # its own start (OffloadRuntime's walk) or one group earlier
+        sim_ms, ahead_ms = (simulate_iteration(schedule_for_interval(
+            [t_unit] * units, interval, t_transfer, 0.1 * t_unit,
+            lookahead_groups=ahead))["latency_s"] * 1e3 for ahead in (1, 2))
+        rows[policy] = {**res, "decode_launches": DA.launches,
+                        "stream_ms_median": ms, "simulated_ms": sim_ms,
+                        "measured_over_simulated": ms / sim_ms,
+                        # each copy issued one group early: how far the
+                        # host runs ahead of the card, bounded by the ring
+                        "simulated_one_group_ahead_ms": ahead_ms,
+                        "measured_over_one_group_ahead": ms / ahead_ms}
+        if DA.launches != (BASELINE_STEPS + 1) * cfg.num_layers:
+            raise AssertionError(f"{policy}: {DA.launches} decode launches")
+        if (interval < NO_OFFLOAD) != (res["host_weight_bytes"] > 0):
+            raise AssertionError(f"{policy}: interval {interval} with "
+                                 f"{res['host_weight_bytes']} host bytes")
+    log("baselines: " + json.dumps({
+        "batch": 8, "seq": MAX_SEQ, "tpot_slo_s": slo,
+        "t_unit_s": t_unit, "t_transfer_s": t_transfer,
+        "flexgen": {"fraction": flexgen.fraction,
+                    "est_iter_s": flexgen.est_iter_s},
+        "policies": rows}))
+    first = next(iter(logits.values()))
+    for policy, lg in logits.items():
+        if not (torch.isfinite(lg).all()
+                and torch.allclose(lg, first, rtol=RTOL, atol=ATOL)):
+            raise AssertionError(f"{policy}: logits differ from the other "
+                                 f"policies'")
+    log("baselines_logits: bitwise equal across policies "
+        f"{all(torch.equal(lg, first) for lg in logits.values())}")
 
 
 def reference_phase(name: str = "reference_lockstep",
@@ -960,6 +1263,10 @@ def main() -> int:
         k["launches"] = launches[k["name"]]
     disk_launches = disk_phase(card)
     log(f"disk path launches (async run): {json.dumps(disk_launches)}")
+    calibration = calibration_phase(card)
+    measured = measured_engine_phase(calibration)
+    baselines_phase(calibration, measured)
+    del calibration, measured
     reference_phase()
     reference_phase("incremental_lockstep", incremental=True)
     reference_phase("disk_lockstep", disk=True)

@@ -25,6 +25,14 @@ attention kernels' time and share of kernel time, and the kernels that took
 the most device time; ``--disk`` adds the data plane's wall seconds (copies
 on the serving thread and on its background worker) and staged pages. The
 Chrome trace is written under ``--out``. Needs a GPU.
+
+The module also holds what ``chip_smoke.py``'s measured phases call:
+``calibrate`` (the per-unit times and host link measured on the card, and
+the ``H100_CALIBRATED`` values fitted from them), ``measured_records`` (the
+analyzer's wall-clock records on the card),
+``measured_engine`` (the smoke configuration served against them),
+``baseline_intervals`` / ``policy_decode`` (the paper's Select-N vs
+DeepSpeed vs FlexGen comparison, run on the card).
 """
 from __future__ import annotations
 
@@ -41,12 +49,24 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import costs
-from repro_torch.core.hardware import PRESETS
-from repro_torch.core.interval import OffloadPlan, iter_time_with_interval_kv
+from repro_torch.core.analyzer import (MeasuredTimes, PerformanceAnalyzer,
+                                       decode_pool, determinism_check,
+                                       paged_decode_inputs, unit_time_stats)
+from repro_torch.core.baselines import (FlexGenDecision, deepspeed_plan,
+                                        flexgen_decision,
+                                        flexgen_equivalent_interval)
+from repro_torch.core.coordinator import max_interval_for_memory
+from repro_torch.core.hardware import H100, PRESETS, HardwareModel
+from repro_torch.core.interval import (NO_OFFLOAD, LayerTimes, OffloadPlan,
+                                       iter_time_with_interval_kv)
+from repro_torch.core.memory_manager import (OffloadRuntime,
+                                             split_model_params)
+from repro_torch.core.record import PerformanceRecord
 from repro_torch.core.slo import SLO_GRANULARITY_S
-from repro_torch.launch.serve import build_engine
+from repro_torch.launch.serve import build_engine, record_buckets
+from repro_torch.models.model import build_model
 from repro_torch.models.transformer import pattern_info
-from repro_torch.serving.engine import EngineConfig
+from repro_torch.serving.engine import EngineConfig, ServingEngine
 from repro_torch.serving.request import Request, State
 
 PROMPT_LENS = (512, 300, 128, 64, 480, 200, 33, 17)
@@ -55,6 +75,26 @@ LONG_PROMPT_LENS = (1000, 760, 130, 40)
 MAX_SEQ = 1024
 PAGE_SIZE = 16
 TPOT_SLO_S = 0.02
+# the records' SLO grid: every 2 ms step up to 238 ms
+SLO_GRID = [0.002 * k for k in range(1, 120)]
+
+
+def smoke_config(prefill_chunk_tokens: int = 0,
+                 incremental_prefill: bool = False
+                 ) -> tuple[ModelConfig, EngineConfig]:
+    """The full-width model and engine configuration of the smoke and
+    profile runs (see ``smoke_engine``)."""
+    cfg = get_config("qwen2.5-3b")
+    _, units = pattern_info(cfg)
+    page_bytes = PAGE_SIZE * costs.kv_cache_bytes(cfg, 1, 1)
+    ecfg = EngineConfig(
+        max_batch=8, max_seq=MAX_SEQ, page_size=PAGE_SIZE,
+        hbm_budget_bytes=OffloadPlan(units, 6).device_bytes(
+            costs.unit_weight_bytes(cfg)) + 40 * page_bytes,
+        host_kv_bytes=128 * page_bytes, autotune=True,
+        prefill_chunk_tokens=prefill_chunk_tokens,
+        incremental_prefill=incremental_prefill)
+    return cfg, ecfg
 
 
 def smoke_engine(device: str = "cuda", *, prefill_chunk_tokens: int = 0,
@@ -71,27 +111,18 @@ def smoke_engine(device: str = "cuda", *, prefill_chunk_tokens: int = 0,
     ``EngineConfig`` fields of chunked prefill: with both, long prompts
     (``LONG_PROMPT_LENS``) prefill chunk by chunk through the paged
     chunk-prefill kernel over pages that sit partly on the host tier."""
-    cfg = get_config("qwen2.5-3b")
-    _, units = pattern_info(cfg)
-    page_bytes = PAGE_SIZE * costs.kv_cache_bytes(cfg, 1, 1)
-    ecfg = EngineConfig(
-        max_batch=8, max_seq=MAX_SEQ, page_size=PAGE_SIZE,
-        hbm_budget_bytes=OffloadPlan(units, 6).device_bytes(
-            costs.unit_weight_bytes(cfg)) + 40 * page_bytes,
-        host_kv_bytes=128 * page_bytes, autotune=True,
-        prefill_chunk_tokens=prefill_chunk_tokens,
-        incremental_prefill=incremental_prefill)
-    return build_engine("smoke", cfg, PRESETS["h100"], ecfg,
-                        [0.002 * k for k in range(1, 120)], device=device)
+    cfg, ecfg = smoke_config(prefill_chunk_tokens, incremental_prefill)
+    return build_engine("smoke", cfg, PRESETS["h100"], ecfg, SLO_GRID,
+                        device=device)
 
 
 def smoke_requests(vocab: int, max_new_tokens: int, rng: np.random.Generator,
-                   prompt_lens: tuple[int, ...] = PROMPT_LENS
-                   ) -> list[Request]:
+                   prompt_lens: tuple[int, ...] = PROMPT_LENS,
+                   tpot_slo_s: float = TPOT_SLO_S) -> list[Request]:
     """One request per ``prompt_lens`` entry, random prompt tokens."""
     return [Request(rid=i, prompt=rng.integers(0, vocab, n).astype(np.int32),
                     max_new_tokens=max_new_tokens, ttft_slo_s=2.0,
-                    tpot_slo_s=TPOT_SLO_S)
+                    tpot_slo_s=tpot_slo_s)
             for i, n in enumerate(prompt_lens)]
 
 
@@ -123,8 +154,7 @@ def disk_engine(device: str = "cuda", *, async_plane: bool = False,
         disk_backing_path=backing_path, preemption=True,
         async_data_plane=async_plane)
     eng = build_engine(f"disk{'_async' if async_plane else ''}", cfg,
-                       PRESETS["h100"], ecfg,
-                       [0.002 * k for k in range(1, 120)], device=device,
+                       PRESETS["h100"], ecfg, SLO_GRID, device=device,
                        params=params)
     if not eng.set_interval(DISK_INTERVAL):
         raise RuntimeError("the disk engine refused its interval")
@@ -176,6 +206,226 @@ def serve_disk_trace(eng, first: list[Request], later: list[Request]
     for r in later:
         eng.submit(r)
     return eng.run([])
+
+
+# ---------------------------------------------------------------------------
+# Calibration, measured records and the baselines on the card
+# ---------------------------------------------------------------------------
+
+# the (batch, seq) bucket each calibrated factor is fitted at: prefill at one
+# 1024-token prompt is compute-bound, decode at batch 8 memory-bound
+CALIBRATION_BUCKETS = {"prefill": (1, MAX_SEQ), "decode": (8, MAX_SEQ)}
+# the small copy whose time, beside a whole unit's, gives the link's latency
+LINK_PROBE_BYTES = 4096
+# the (batch, seq) decode bucket of the baselines comparison
+BASELINE_BUCKET = (8, MAX_SEQ)
+
+
+def measure_link(nbytes: int) -> dict:
+    """Pinned host-to-device copies of ``nbytes`` and of
+    ``LINK_PROBE_BYTES`` out of one buffer, each the median of 10
+    CUDA-event timings after a warm-up: the link's bandwidth is the slope
+    between the two, its latency the intercept."""
+    src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+
+    def copy_s(n: int) -> float:
+        dst[:n].copy_(src[:n], non_blocking=True)
+        ts = []
+        for _ in range(10):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            dst[:n].copy_(src[:n], non_blocking=True)
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end) / 1e3)
+        return float(np.median(ts))
+
+    full, probe = copy_s(nbytes), copy_s(LINK_PROBE_BYTES)
+    bw = (nbytes - LINK_PROBE_BYTES) / (full - probe)
+    return {"bytes": nbytes, "copy_s": full, "probe_bytes": LINK_PROBE_BYTES,
+            "probe_copy_s": probe, "gb_s": nbytes / full / 1e9,
+            "bw_bytes_s": bw, "latency_s": full - nbytes / bw}
+
+
+def fit_calibration(cfg: ModelConfig, prefill_s: float, decode_s: float,
+                    link: dict) -> dict:
+    """``H100_CALIBRATED``'s four values: the efficiency factors that make
+    the datasheet roofline (``HardwareModel.exec_time``) give the measured
+    prefill unit time from its FLOPs and the measured decode unit time from
+    its bytes, at ``CALIBRATION_BUCKETS``, and the measured link."""
+    p, _ = pattern_info(cfg)
+    (pb, ps), (db, ds) = (CALIBRATION_BUCKETS["prefill"],
+                          CALIBRATION_BUCKETS["decode"])
+    flops = sum(costs.layer_flops(cfg, pb, ps, ps, j) for j in range(p))
+    nbytes = sum(costs.layer_act_bytes(cfg, db, 1, ds, j) for j in range(p))
+    return {"compute_eff": flops / (H100.peak_flops * prefill_s),
+            "mem_eff": nbytes / (H100.hbm_bw * decode_s),
+            "host_link_bw": link["bw_bytes_s"],
+            "host_link_latency_s": link["latency_s"]}
+
+
+def unit_enqueue_s(an: PerformanceAnalyzer, batch: int, seq: int) -> dict:
+    """The wall-clock decode unit's host enqueue time (the call returning,
+    no synchronize) beside its CUDA-event time (first launch to last),
+    medians of 10 calls after a warm-up. Equal times mean the card waits on
+    the host: the unit is launch-bound."""
+    fn, args = an.unit_call(batch, seq, "decode")
+    fn(*args)
+    enqueue, event = [], []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn(*args)
+        end.record()
+        enqueue.append(time.perf_counter() - t0)
+        end.synchronize()
+        event.append(start.elapsed_time(end) / 1e3)
+    return {"enqueue_s": float(np.median(enqueue)),
+            "event_s": float(np.median(event))}
+
+
+def calibrate(cfg: ModelConfig) -> dict:
+    """Measure on the card what ``H100_CALIBRATED`` is fitted from: the
+    per-unit decode time at (8, 1024) with its CV over 5 measurements
+    (``determinism_check``), the prefill unit at (1, 1024) the same way, and
+    the host link over one unit's weight bytes; returns them with the
+    fitted values, and the decode unit's enqueue and device times
+    (``unit_enqueue_s``)."""
+    db, ds = CALIBRATION_BUCKETS["decode"]
+    pb, ps = CALIBRATION_BUCKETS["prefill"]
+    decode = determinism_check(cfg, db, ds)
+    an = PerformanceAnalyzer(cfg, H100, measure="wallclock")
+    prefill = unit_time_stats(an, pb, ps, "prefill")
+    link = measure_link(costs.unit_weight_bytes(cfg))
+    return {"card": torch.cuda.get_device_name(0),
+            "decode": {"batch": db, "seq": ds, **decode,
+                       **unit_enqueue_s(an, db, ds)},
+            "prefill": {"batch": pb, "seq": ps, **prefill}, "link": link,
+            "fitted": fit_calibration(cfg, prefill["mean_s"],
+                                      decode["mean_s"], link)}
+
+
+def measured_records(cfg: ModelConfig, ecfg: EngineConfig,
+                     hw: HardwareModel, device: str = "cuda"
+                     ) -> tuple[dict[str, PerformanceRecord],
+                                dict[tuple[str, int, int], MeasuredTimes]]:
+    """The prefill and decode records of ``ecfg``'s buckets, built with
+    ``measure="wallclock"`` on ``device`` against ``hw``'s link (the
+    calibrated preset), and what each bucket measured: ``(phase, batch,
+    seq) -> MeasuredTimes``."""
+    an = PerformanceAnalyzer(cfg, hw, measure="wallclock", device=device)
+    batches, seqs = record_buckets(ecfg)
+    records = {phase: an.generate_record(SLO_GRID, batches, seqs, phase)
+               for phase in ("prefill", "decode")}
+    return records, an.bucket_times
+
+
+def measured_tpot_slo(rec_decode: PerformanceRecord, times_fn,
+                      cfg: ModelConfig, ecfg: EngineConfig, batch: int = 8,
+                      seq: int = MAX_SEQ) -> float:
+    """The smallest SLO of the grid that an engine of ``ecfg`` serving
+    against ``rec_decode`` and modeling its clock with ``times_fn`` can
+    certify for ``batch`` rows at ``seq``: the record must have an interval
+    the HBM budget can hold for that bucket and every smaller one (measured
+    unit times need not grow with the bucket, and admission looks up the
+    smaller buckets too), and the modeled iteration at the largest such
+    interval, with the whole host KV tier streaming, must fit (else the
+    scheduler's own TPOT check holds the requests back). The budget must
+    force offloading: the record's ``NO_OFFLOAD`` also marks an SLO that no
+    interval meets."""
+    _, units = pattern_info(cfg)
+    max_i = max_interval_for_memory(units, costs.unit_weight_bytes(cfg),
+                                    ecfg.hbm_budget_bytes)
+    if max_i >= NO_OFFLOAD:
+        raise ValueError("the HBM budget holds every unit: no interval "
+                         "ceiling to size the SLO against")
+    buckets = [(b, s) for b in rec_decode.batches if b <= batch
+               for s in rec_decode.seqs if s <= seq]
+    modeled = iter_time_with_interval_kv(times_fn(batch, seq, "decode"),
+                                         max_i, ecfg.host_kv_bytes)
+    for slo in SLO_GRID:
+        if slo >= modeled and all(rec_decode.lookup(slo, b, s) <= max_i
+                                  for b, s in buckets):
+            return slo
+    raise ValueError(f"no SLO up to {SLO_GRID[-1]} s is feasible for batch "
+                     f"{batch} at seq {seq} within interval {max_i}")
+
+
+def measured_engine(records: dict[str, PerformanceRecord],
+                    hw: HardwareModel, device: str = "cuda") -> ServingEngine:
+    """``smoke_engine``'s configuration, admitting and choosing intervals
+    from ``records`` measured on the card (``measured_records``). Its
+    modeled clock (``times_fn``) is ``hw`` in model mode, the calibrated
+    preset fitted in the same run as the records: the engine calls
+    ``times_fn`` inside every iteration, and in wall-clock mode each call
+    would time a unit on the card in the middle of serving; the reference,
+    too, measures only in its offline stage."""
+    cfg, ecfg = smoke_config()
+    clock = PerformanceAnalyzer(cfg, hw, measure="model", device=device)
+    return ServingEngine("measured", build_model(cfg), hw,
+                         records["prefill"], records["decode"],
+                         clock.layer_times, ecfg, device=device)
+
+
+def baseline_intervals(cfg: ModelConfig, rec_decode: PerformanceRecord,
+                       times: LayerTimes, slo_s: float
+                       ) -> tuple[dict[str, int], FlexGenDecision]:
+    """The paper's headline comparison at batch 8, seq 1024: Select-N's
+    interval from the record; DeepSpeed ZeRO-Inference's (interval 1); and
+    SLO-aware FlexGen's decision over the *datasheet* ``h100`` preset (its
+    peak-FLOPs estimator) and the measured ``times``, mapped to the interval
+    with the same offloaded bytes. Returns the intervals and FlexGen's
+    decision."""
+    batch, seq = BASELINE_BUCKET
+    p, units = pattern_info(cfg)
+    flops = sum(costs.layer_flops(cfg, batch, 1, seq, j) for j in range(p))
+    flexgen = flexgen_decision(times, H100, slo_s, flops)
+    return {"select_n": rec_decode.lookup(slo_s, batch, seq),
+            "deepspeed": deepspeed_plan(units).interval,
+            "flexgen": flexgen_equivalent_interval(times, flexgen)}, flexgen
+
+
+def policy_decode(cfg: ModelConfig, params: dict, interval: int, *,
+                  batch: int, seq: int, steps: int,
+                  device: str = "cuda") -> dict:
+    """``steps`` decode iterations of ``batch`` rows at ``seq`` through
+    ``OffloadRuntime.paged_decode_step`` at ``interval``, after one warm-up,
+    on a runtime placed for this plan alone (offloaded units in pinned host
+    memory, the rest on the card). Returns the plan's weight bytes on each
+    side, each step's stream time on a GPU (CUDA events, as the engine's
+    ``decode_ms``; none on the CPU) and the last step's logits."""
+    model = build_model(cfg)
+    _, units = pattern_info(cfg)
+    plan = OffloadPlan(units, interval)
+    rt = OffloadRuntime(model, plan, device)
+    placed = rt.place(split_model_params(params, plan))
+    d = paged_decode_inputs(decode_pool(cfg, model.virtual_kv, batch, seq,
+                                        device), batch, seq)
+    tokens = torch.zeros((batch,), dtype=torch.int32, device=device)
+    on_card = torch.device(device).type == "cuda"
+    ms = []
+    for _ in range(steps + 1):
+        if on_card:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        logits, _ = rt.paged_decode_step(
+            placed, tokens, d.pos, d.pool, d.block_tables, d.context_lens,
+            d.write_frames, d.write_offsets)
+        if on_card:
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+    return {"interval": interval, "host_weight_bytes": rt.host_weight_bytes,
+            "device_weight_bytes": plan.device_bytes(
+                costs.unit_weight_bytes(cfg)),
+            "prefetch_copies": rt.prefetch_copies, "stream_ms": ms[1:],
+            "logits": logits.float().cpu()}
 
 
 def _union_us(spans: list[tuple[float, float]]) -> float:

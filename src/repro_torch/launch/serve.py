@@ -7,8 +7,11 @@ offloading (port of ``repro.launch.serve``).
 Builds the offline performance record (the analyzer's two-stage step 1),
 starts an engine on ``--device`` (default cuda), replays a synthetic
 request stream, and reports SLO attainment + throughput with the
-reference's summary keys. ``--prefill-chunk-tokens N --incremental-prefill``
-serves long prompts in chunks through the paged chunk-prefill kernel.
+reference's summary keys. ``--hw h100_calibrated`` models the clock with
+the H100 preset fitted from measurements on the card (``core/hardware.py``;
+``--hw h100`` is the datasheet). ``--prefill-chunk-tokens N
+--incremental-prefill`` serves long prompts in chunks through the paged
+chunk-prefill kernel.
 ``--disk-kv-gb`` adds the disk (NVMe) KV tier below the host pool (RAM, or
 a file with ``--disk-backing-path``), and ``--async-data-plane`` queues
 its page copies for the next iteration boundary; the summary's
@@ -36,15 +39,20 @@ from repro_torch.serving.engine import EngineConfig, ServingEngine
 from repro_torch.serving.request import Request
 
 
+def record_buckets(ecfg: EngineConfig) -> tuple[list[int], list[int]]:
+    """The (batches, seqs) buckets of an engine's performance records."""
+    batches = [1, 2, 4, 8, 16, 32, 64, 128]
+    seqs = [16, 32, 64, 128, 256, 512, 1024]
+    return ([b for b in batches if b <= ecfg.max_batch * 2],
+            [s for s in seqs if s <= max(ecfg.max_seq * 2, 32)])
+
+
 def build_engine(name: str, cfg, hw, ecfg: EngineConfig,
                  slo_grid_s, measure: str = "model", device: str = "cuda",
                  params: dict | None = None) -> ServingEngine:
     model = build_model(cfg)
-    an = PerformanceAnalyzer(cfg, hw, measure=measure)
-    batches = [1, 2, 4, 8, 16, 32, 64, 128]
-    seqs = [16, 32, 64, 128, 256, 512, 1024]
-    batches = [b for b in batches if b <= ecfg.max_batch * 2]
-    seqs = [s for s in seqs if s <= max(ecfg.max_seq * 2, 32)]
+    an = PerformanceAnalyzer(cfg, hw, measure=measure, device=device)
+    batches, seqs = record_buckets(ecfg)
     rec_p = an.generate_record(slo_grid_s, batches, seqs, "prefill")
     rec_d = an.generate_record(slo_grid_s, batches, seqs, "decode")
     return ServingEngine(name, model, hw, rec_p, rec_d, an.layer_times, ecfg,

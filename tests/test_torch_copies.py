@@ -16,18 +16,23 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 VERBATIM = sorted(
     [f"configs/{p.name}" for p in (SRC / "repro" / "configs").glob("*.py")]
     + ["core/interval.py", "core/record.py", "core/slo.py",
-       "core/coordinator.py", "serving/kv_cache.py", "serving/request.py",
+       "core/coordinator.py", "core/baselines.py", "core/simulator.py",
+       "serving/kv_cache.py", "serving/request.py",
        "serving/scheduler.py", "serving/autotune.py",
        "serving/telemetry.py", "data/workload.py"])
 
 # module -> (reason, lines only the reference has, marker of added lines)
 EDITED = {
     "core/hardware.py": (
-        "adds the datasheet H100 preset and lists it in PRESETS",
+        "adds the datasheet H100 preset and H100_CALIBRATED, whose "
+        "compute_eff, mem_eff, host_link_bw and host_link_latency_s are "
+        "fitted from wall-clock measurements on the card (the counterpart "
+        "of the reference's A10_CALIBRATED), and lists both in PRESETS",
         {'PRESETS = {"a10": A10, "a10_calibrated": A10_CALIBRATED, '
          '"tpu_v5e": TPU_V5E}'},
         re.compile(r"H100|h100|hbm_|peak_flops=|host_link|devices_per_bus"
-                   r"|name=|^\)$|^#|PRESETS|^$|Gen5|measured")),
+                   r"|name=|^\)$|^#|PRESETS|^$|Gen5|measured"
+                   r"|compute_eff=|mem_eff=")),
     "core/costs.py": (
         "drops the reference's unused jax.numpy, numpy and layers imports",
         {"import jax.numpy as jnp", "import numpy as np",

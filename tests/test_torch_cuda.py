@@ -439,3 +439,82 @@ def test_disk_file_round_trip_on_the_card(cuda, tmp_path):
             eng.host_pool[r.page]
         np.testing.assert_array_equal(bits(page), b)
     eng.kv.check_invariants()
+
+
+@pytest.mark.cuda
+def test_wallclock_analyzer_on_the_card(cuda):
+    """The analyzer's default mode times one unit on the card at a small
+    width: positive times, records marked ``wallclock`` on the calibrated
+    preset, and the prefill and decode units go through the flash and
+    paged decode kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduce_config
+    from repro_torch.core.analyzer import (PerformanceAnalyzer,
+                                           determinism_check)
+    from repro_torch.core.hardware import H100_CALIBRATED
+
+    cfg = reduce_config(get_config("qwen2.5-3b"), d_model=256, heads=4,
+                        layers=4, d_ff=512, vocab=1024)
+    an = PerformanceAnalyzer(cfg, H100_CALIBRATED)
+    assert an.measure == "wallclock" and an.device.type == "cuda"
+    da, fa = DA.launches, FA.launches
+    for phase in ("prefill", "decode"):
+        rec = an.generate_record([0.002 * k for k in range(1, 20)], [1, 4],
+                                 [16, 64], phase)
+        assert (rec.measure, rec.hardware) == ("wallclock", "h100_calibrated")
+        mt = an.measure_times(4, 64, phase)
+        assert mt.t_compute_s > 0 and mt.t_rest_s == 0.1 * mt.t_compute_s
+    assert DA.launches > da and FA.launches > fa
+    stats = determinism_check(cfg, 4, 64, iters=3)
+    assert stats["mean_s"] > 0 and np.isfinite(stats["cv"])
+
+
+@pytest.mark.cuda
+def test_weight_stream_copy_overlaps_compute(cuda):
+    """``WeightStream`` copies a group's offloaded unit on its side stream
+    while the group's resident units compute (paper Fig. 7). With a
+    synthetic compute load about 1.5x one unit's copy, a group with the
+    prefetch must take at most 0.75 of compute and copy timed apart (fully
+    serial: 1.0; fully overlapped: about 0.6)."""
+    import time
+
+    from repro_torch.core.memory_manager import WeightStream
+
+    unit = 128 * 2**20
+    host = {"w": torch.empty((2, unit), dtype=torch.uint8).pin_memory(),
+            "b": torch.empty((2, 4096), dtype=torch.uint8).pin_memory()}
+    ws = WeightStream(host, cuda)
+    a = torch.randn((4096, 4096), device=cuda).to(torch.bfloat16)
+
+    def wall(fn, reps=5):
+        fn()
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return float(np.median(ts))
+
+    def copy(g=0):
+        slot = ws.issue(g)
+        ws.acquire(slot)["w"][:1].add_(0)
+        ws.release(slot)
+
+    t_copy, t_mm = wall(copy), wall(lambda: a @ a)
+    n = max(1, round(1.5 * t_copy / t_mm))
+
+    def compute():
+        for _ in range(n):
+            a @ a
+
+    def group():
+        slot = ws.issue(1)            # the offloaded unit's prefetch
+        compute()                     # the resident units
+        ws.acquire(slot)["w"][:1].add_(0)
+        ws.release(slot)
+
+    t_compute, t_group = wall(compute), wall(group)
+    assert t_group <= 0.75 * (t_compute + t_copy), (t_group, t_compute,
+                                                    t_copy)

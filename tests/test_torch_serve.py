@@ -344,3 +344,9 @@ def test_engine_holds_the_current_intervals_placement():
             rt.plan.device_bytes(unit)
         # nothing is pinned or prefetched on the CPU
         assert eng.host_weight_bytes == 0 and eng.prefetch_copies == 0
+
+
+def test_calibrated_preset_on_the_cli(capsys):
+    """``--hw h100_calibrated`` serves with the clock fitted on the card."""
+    got = _summary(serve.main, ARGS + ["--hw", "h100_calibrated"], capsys)
+    assert got["finished"] + got["rejected"] == 4 and got["finished"] > 0
