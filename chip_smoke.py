@@ -14,9 +14,11 @@ Phases, each fatal on failure:
    whichever chunk carries them; then each kernel timed with CUDA events
    beside its bound, its plain version and, for flash attention,
    ``scaled_dot_product_attention`` (for the chunk kernel, SDPA over the
-   context gathered beforehand, as a reference point).
+   context gathered beforehand, as a reference point), and each kernel
+   again as a replay of a CUDA graph holding its one launch.
 3. Full-width qwen2.5-3b (random weights, seed 0) served by the port's
-   engine with online interval autotuning and a host KV tier: every request
+   engine, whose decode step is a CUDA graph (the captures are counted),
+   with online interval autotuning and a host KV tier: every request
    finishes at a finite offloading interval, the trace audit is clean, the
    decode and flash kernels ran on the main path, offloaded weight units
    sat in pinned host memory and were prefetched on the side stream; then
@@ -37,27 +39,40 @@ Phases, each fatal on failure:
    SLO met) and conserved staged-page counters; then a park's pages through
    a file-backed disk pool and back, bit for bit.
    The async run's drains are split from the outside into the wait for
-   the background worker, the device wait and the copies.
+   the background worker, the device wait and the copies, and the
+   worker's page copy is timed on its own with the serving thread idle,
+   issuing eager decode steps and replaying the step's graph, for the
+   plane's copy routine and the one it replaced.
 4. The analyzer's wall-clock mode on the card (``profile_engine``):
    ``calibration_phase`` measures the per-unit decode and prefill times
-   with their CVs and the pinned host link, fits ``H100_CALIBRATED`` from
-   them, and builds the smoke buckets' records with ``measure="wallclock"``
+   (graph replays) with their CVs beside the same units called eagerly,
+   the pinned host link and the LM-head rest, fits ``H100_CALIBRATED``
+   from them, and builds the smoke buckets' records with
+   ``measure="wallclock"``
    (the flash and paged decode kernels must run while it does), held
    against the model-mode records of the preset this run fitted;
    ``measured_engine_phase`` serves the smoke requests against those
    records at the smallest TPOT SLO the engine can certify from them and
-   that preset as its clock (every request finishes, audit clean) and sets
-   the modeled verdict beside the measured stream time; ``baselines_phase``
+   that preset, with the rest term fitted apart, as its clock (every
+   request finishes, audit clean) and sets the modeled verdict beside the
+   measured stream time and the record's stack times; ``baselines_phase``
    runs Select-N, DeepSpeed (interval 1) and FlexGen decode steps on the
    card with the same weights, beside the simulator's latency from the
    measured unit time and link.
-5. The CUDA engine in lockstep with the same engine on the CPU (the
+5. The fleet (``fleet_phase``) at full width on this one card: a
+   2-instance affinity fleet, a round-robin fleet, one big instance and a
+   1 prefill + 1 decode disaggregated fleet serve one multi-tenant trace
+   with the same tokens, then one request migrates across instances
+   mid-decode with the tokens of a never-migrated engine; every audit
+   clean.
+6. The CUDA engine in lockstep with the same engine on the CPU (the
    kernels' plain versions) on a small model: at interval 2 with a host KV
    tier, once with one-shot prefills and once with incremental chunked
    prefill, and on the disk pressure trace with the async plane: equal
    iteration records, logits within the DualEngine tolerance.
-6. The port's serve CLI on the reduced default config: one-shot, incremental
-   chunked prefill, and three KV tiers with the async data plane.
+7. The port's serve CLI on the reduced default config: one-shot, incremental
+   chunked prefill, three KV tiers with the async data plane, a 2-instance
+   fleet and a disaggregated fleet.
 
 Prints a JSON ``kernels`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
@@ -124,6 +139,14 @@ def time_ms(fn, iters: int = 25, flush: torch.Tensor | None = None) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn, flush: torch.Tensor | None = None) -> float:
+    """``time_ms`` of ``fn`` captured into a CUDA graph and replayed (the
+    launch the engine's graphed decode step makes of it)."""
+    from repro_torch.core.graphs import Graphed
+
+    return time_ms(Graphed(fn, ()).replay, flush=flush)
 
 
 def max_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
@@ -202,6 +225,8 @@ def check_decode(flush: torch.Tensor) -> dict:
     checks = list(cases) + ["bitwise_repeat", "batch_independent"]
     ms = time_ms(lambda: DA.paged_decode_attention(q, kp, vp, bt, cl),
                  flush=flush)
+    in_graph_ms = graph_ms(lambda: DA.paged_decode_attention(q, kp, vp, bt,
+                                                             cl), flush)
     plain_ms = time_ms(lambda: DA.paged_decode_attention_plain(
         q, kp, vp, bt, cl))
     tokens = int(cl.clamp(0, nb * page).sum())
@@ -214,11 +239,13 @@ def check_decode(flush: torch.Tensor) -> dict:
     log(f"paged_decode: B={b} H={h} V={vh} D={d} page={page} nb={nb} "
         f"splits={-(-nb // DA.PAGES_PER_SPLIT)} tokens={tokens} "
         f"checks={checks} max_abs_err={max(errs):.3g} "
-        f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f}")
+        f"ms={ms:.4f} graph_ms={in_graph_ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound_ms:.5f}")
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:71",
-            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": max(errs), "ms": ms, "graph_ms": in_graph_ms,
+            "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "check": "pass", "checks": checks}
 
@@ -259,6 +286,7 @@ def check_flash(flush: torch.Tensor) -> dict:
         raise AssertionError("flash: two launches differ")
     checks = list(cases) + ["bitwise_repeat"]
     ms = time_ms(lambda: FA.flash_attention(q, k, v), flush=flush)
+    in_graph_ms = graph_ms(lambda: FA.flash_attention(q, k, v), flush)
     plain_ms = time_ms(lambda: FA.flash_attention_plain(q, k, v))
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), flush=flush)
@@ -269,12 +297,14 @@ def check_flash(flush: torch.Tensor) -> dict:
                              (flops / BF16_FLOPS_S * 1e3, "operations"))
     log(f"flash: B={b} H={h} V={vh} S={s} D={d} causal checks={checks} "
         f"max_abs_err={max(errs):.3g} "
-        f"ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
-        f"(kernel / sdpa {ms / lib_ms:.3f}) bound_ms={bound_ms:.5f}")
+        f"ms={ms:.4f} graph_ms={in_graph_ms:.4f} plain_ms={plain_ms:.4f} "
+        f"sdpa_ms={lib_ms:.4f} (kernel / sdpa {ms / lib_ms:.3f}) "
+        f"bound_ms={bound_ms:.5f}")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:79",
-            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": max(errs), "ms": ms, "graph_ms": in_graph_ms,
+            "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
             "check": "pass", "checks": checks}
 
@@ -363,6 +393,8 @@ def check_chunk(flush: torch.Tensor) -> dict:
     splits = PA.split_geometry(c, h, vh, d, PA.key_end(c, page, start, cl))[0]
     ms = time_ms(lambda: PA.paged_chunk_attention(q, kp, vp, bt, start, cl),
                  flush=flush)
+    in_graph_ms = graph_ms(lambda: PA.paged_chunk_attention(
+        q, kp, vp, bt, start, cl), flush)
     plain_ms = time_ms(lambda: PA.paged_chunk_attention_plain(
         q, kp, vp, bt, start, cl))
     # a reference point only (not the library yardstick: no single PyTorch
@@ -395,14 +427,15 @@ def check_chunk(flush: torch.Tensor) -> dict:
         f"start={start} context_len={cl} splits={splits} (span {span} keys, "
         f"grid {-(-c // (64 // (h // vh)))} x {vh} x {splits}) "
         f"checks={checks} max_abs_err={max(errs):.3g} ms={ms:.5f} "
-        f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}) "
+        f"graph_ms={in_graph_ms:.5f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}) "
         f"sdpa_pregathered_ms={sdpa_ms:.5f} (max |diff| {sdpa_err:.3g}, "
         f"kernel / sdpa {ms / sdpa_ms:.3f})")
     log(f"paged_chunk ptxas: {' | '.join(ptxas)}")
     return {"name": "paged_chunk_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/prefill_attention.cu",
             "replaces": "src/repro/kernels/prefill_attention.py:78",
-            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": max(errs), "ms": ms, "graph_ms": in_graph_ms,
+            "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "check": "pass", "checks": checks}
 
@@ -410,6 +443,73 @@ def check_chunk(flush: torch.Tensor) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 3: full-width engine
 # ---------------------------------------------------------------------------
+
+
+def replay_profile(replay, n: int = 3) -> dict:
+    """``torch.profiler`` over ``n`` back-to-back replays of a graph: the
+    device time its kernels and its copies cover, the copies' count and
+    median duration, and the kernels that took the longest."""
+    from repro_torch.launch.profile_engine import trace_summary
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    replay()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            replay()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "replay_trace.json"
+        prof.export_chrome_trace(str(path))
+        trace = json.loads(path.read_text())
+    copies = [float(ev["dur"]) / 1e3 for ev in trace.get("traceEvents", [])
+              if ev.get("ph") == "X" and ev.get("cat") == "gpu_memcpy"]
+    summary = trace_summary(trace, wall_us, top=4)
+    return {k: summary[k] for k in ("wall_ms", "kernel_ms", "copy_ms",
+                                    "busy_ms", "idle_share",
+                                    "top_kernels")} | {
+        "copies": len(copies),
+        "copy_ms_median": statistics.median(copies) if copies else None,
+        "copy_ms_max": max(copies, default=None)}
+
+
+def placement_link(eng) -> dict:
+    """Host-to-device copy rate of the engine's own placement after its
+    run: each group's offloaded unit copied from the pinned stack into the
+    weight ring's first slot (CUDA events, one copy per group), beside the
+    decode steps' stream-time spread and five back-to-back replays of the
+    engine's decode graph with nothing between them (the last step's
+    inputs; the pool's pages are free after the run)."""
+    from repro_torch.models.spec import tree_leaves, tree_map
+
+    rt, _ = eng._rt()
+    ws = rt._stream
+    out = {"decode_stream_ms_min": min(eng.decode_ms),
+           "decode_stream_ms_max": max(eng.decode_ms)}
+    if eng._decode_graph is not None:
+        replay = eng._decode_graph[1].replay
+        out["graph_replay_ms_isolated"] = time_ms(replay, iters=5)
+        out["graph_replay_profile"] = replay_profile(replay)
+    if ws is None:
+        return out
+    nbytes = sum(t[0].numel() * t[0].element_size()
+                 for t in tree_leaves(ws.host))
+    ms = []
+    for g in range(rt.plan.num_groups):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        tree_map(lambda d, h: d.copy_(h[g], non_blocking=True), ws.slots[0],
+                 ws.host)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    out.update({"unit_bytes": nbytes, "unit_copy_ms": ms,
+                "unit_copy_gb_s_median": nbytes / statistics.median(ms) / 1e6})
+    return out
 
 
 def engine_phase() -> dict:
@@ -443,6 +543,8 @@ def engine_phase() -> dict:
         "intervals": intervals, "final_interval": eng.interval,
         "host_weight_bytes": eng.host_weight_bytes,
         "prefetch_copies": eng.prefetch_copies,
+        "decode_graph_captures": eng.decode_graph_captures,
+        "interval_switches": eng.interval_switches,
         "launches": launches, "audit_ok": report.ok,
         "audit_checks": report.checks,
         "host_kv_peak_pages": eng.host_kv_peak_pages,
@@ -456,6 +558,7 @@ def engine_phase() -> dict:
         "prefill_stream_ms_median": statistics.median(eng.prefill_ms),
         "build_s": build_s, "run_s": run_s,
         "wall_modeled_s": out["wall_modeled_s"],
+        "placement": placement_link(eng),
     }
     log("engine: " + json.dumps(summary))
     if out["finished"] != len(reqs):
@@ -567,6 +670,7 @@ def incremental_phase() -> int:
         "chunk_stream_ms_median": statistics.median(eng.chunk_ms),
         "chunk_stream_ms_max": max(eng.chunk_ms),
         "decode_stream_ms_median": statistics.median(eng.decode_ms),
+        "decode_graph_captures": eng.decode_graph_captures,
         "run_s": run_s, "wall_modeled_s": out["wall_modeled_s"],
     }
     log("incremental_engine: " + json.dumps(summary))
@@ -615,14 +719,26 @@ def drain_split(plane):
     device->host copy (a synchronize just before ``ops.copy_pages_to_host``,
     whose ``.cpu()`` would wait for the same kernels), and the copies
     themselves (``_exec_group`` less that device wait). Yields the dict the
-    seconds accumulate in; ``drain_s`` is the drains' whole wall time."""
+    seconds accumulate in; ``drain_s`` is the drains' whole wall time, and
+    ``worker_pages`` / ``worker_copy_s`` count the pages the background
+    worker copied and the seconds its copy routine took for them."""
+    import threading
+
     from repro_torch.kernels import ops
 
     split = {"drain_s": 0.0, "worker_wait_s": 0.0, "device_wait_s": 0.0,
-             "copy_s": 0.0}
+             "copy_s": 0.0, "worker_pages": 0, "worker_copy_s": 0.0}
     inside = [False]
     drain, wait_bg, exec_group = plane.drain, plane._wait_bg, plane._exec_group
+    to_disk = plane._host_to_disk
     to_host = ops.copy_pages_to_host
+
+    def to_disk_split(srcs, dsts):
+        t0 = time.perf_counter()
+        to_disk(srcs, dsts)
+        if threading.current_thread() is not threading.main_thread():
+            split["worker_copy_s"] += time.perf_counter() - t0
+            split["worker_pages"] += len(srcs)
 
     def timed(key, fn):
         def run(*args, **kwargs):
@@ -652,13 +768,81 @@ def drain_split(plane):
     plane.drain = drain_split_run
     plane._wait_bg = timed("worker_wait_s", wait_bg)
     plane._exec_group = timed("copy_s", exec_group)
+    plane._host_to_disk = to_disk_split
     ops.copy_pages_to_host = to_host_split
     try:
         yield split
     finally:
-        del plane.drain, plane._wait_bg, plane._exec_group
+        del plane.drain, plane._wait_bg, plane._exec_group, plane._host_to_disk
         ops.copy_pages_to_host = to_host
         split["copy_s"] -= split["device_wait_s"]
+
+
+def worker_copy_probe(eng, card: str) -> dict:
+    """The background worker's host->disk page copy, timed on a thread of
+    its own (24 one-page copies, the median of the last 20) with the
+    serving thread idle, while it issues eager decode steps from Python
+    (about 70 launches per layer, how the engine ran before its step was a
+    CUDA graph) and while it replays the step's graph; each for the
+    plane's routine (``numpy.copyto`` per page) and for the routine it
+    replaced (``index_select`` + ``index_copy_``, through torch's intra-op
+    pool, with a temporary per batch). Runs on ``eng``'s pools after its
+    run, when every frame is free."""
+    import functools
+    import threading
+
+    from repro_torch.core.analyzer import decode_pool, paged_decode_inputs
+    from repro_torch.core.graphs import Graphed
+
+    plane = eng.data_plane
+    ids = lambda f: torch.as_tensor(f, dtype=torch.long)
+
+    def index_copy(srcs, dsts):
+        plane.disk_pool.index_copy_(0, ids(dsts),
+                                    plane.host_pool.index_select(0, ids(srcs)))
+
+    rt, placed = eng._rt()
+    step = functools.partial(rt.paged_decode_step, placed)
+    d = paged_decode_inputs(decode_pool(eng.cfg, eng.model.virtual_kv, 4,
+                                        eng.ecfg.max_seq, "cuda"), 4,
+                            eng.ecfg.max_seq)
+    inputs = (torch.zeros(4, dtype=torch.int32, device="cuda"), d.pos,
+              d.pool, d.block_tables, d.context_lens, d.write_frames,
+              d.write_offsets)
+    graph = Graphed(step, inputs)
+
+    def synced(call):
+        def run():
+            call()
+            torch.cuda.synchronize()
+        return run
+
+    loads = {"idle": None, "eager_steps": synced(lambda: step(*inputs)),
+             "graph_replays": synced(graph.replay)}
+    n_host, n_disk = plane.host_pool.shape[0], plane.disk_pool.shape[0]
+    out = {"page_bytes": eng.kv.page_bytes, "card": card}
+    for name, routine in (("numpy_copyto", plane._host_to_disk),
+                          ("index_copy", index_copy)):
+        for load_name, load in loads.items():
+            times: list[float] = []
+
+            def worker():
+                for k in range(24):
+                    t0 = time.perf_counter()
+                    routine([k % n_host], [k % n_disk])
+                    times.append(time.perf_counter() - t0)
+
+            th = threading.Thread(target=worker)
+            th.start()
+            steps = 0
+            while load is not None and th.is_alive():
+                load()
+                steps += 1
+            th.join()
+            out[f"{name}_{load_name}_ms_per_page"] = (
+                statistics.median(times[4:]) * 1e3)
+            out[f"{name}_{load_name}_serving_steps"] = steps
+    return out
 
 
 def disk_phase(card: str) -> dict:
@@ -707,6 +891,7 @@ def disk_phase(card: str) -> dict:
                 out["slo_ok"], "interval": eng.interval,
             "decode_stream_ms_median": statistics.median(eng.decode_ms),
             "prefill_stream_ms_median": statistics.median(eng.prefill_ms),
+            "decode_graph_captures": eng.decode_graph_captures,
             # wall seconds of the plane's copies on the serving thread (a
             # device->host copy also waits for the kernels queued before
             # it) and on its background worker
@@ -717,6 +902,8 @@ def disk_phase(card: str) -> dict:
         }
         if split is not None:
             summary["async_drain_split_s"] = split
+            summary["worker_copy_ms_per_page_in_run"] = (
+                split["worker_copy_s"] * 1e3 / max(split["worker_pages"], 1))
         log("disk_engine: " + json.dumps(summary))
         n = len(first) + len(later)
         if out["finished"] != n or out["rejected"]:
@@ -742,6 +929,10 @@ def disk_phase(card: str) -> dict:
                 raise AssertionError(f"rid {r.rid}: bad tokens")
         runs[async_plane] = eng
     sync, asyn = runs[False], runs[True]
+    log("worker_copy_probe: " + json.dumps(worker_copy_probe(asyn, card)))
+    log(f"disk_blocking_copy_s: sync {sync.data_plane.blocking_copy_s!r} "
+        f"async {asyn.data_plane.blocking_copy_s!r} (async below sync "
+        f"{asyn.data_plane.blocking_copy_s < sync.data_plane.blocking_copy_s})")
     # tests/differential/test_async_data_plane.py::_assert_equivalent
     tok_s = {r.rid: list(r.generated) for r in sync.finished}
     tok_a = {r.rid: list(r.generated) for r in asyn.finished}
@@ -890,7 +1081,7 @@ def calibration_phase(card: str) -> dict:
     committed = {k: getattr(H100_CALIBRATED, k) for k in cal["fitted"]}
     summary = {
         "decode_unit": cal["decode"], "prefill_unit": cal["prefill"],
-        "link": cal["link"], "fitted": cal["fitted"],
+        "link": cal["link"], "fitted": cal["fitted"], "rest": cal["rest"],
         "committed_h100_calibrated": committed,
         "record_build_s": build_s, "record_launches": launches,
         "record_cells_wallclock_vs_calibrated_model": cells,
@@ -931,15 +1122,26 @@ def measured_engine_phase(calibration: dict) -> dict:
     from repro_torch.core.interval import iter_time_with_interval_kv
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.launch.profile_engine import (SLO_GRID, measured_engine,
+    from repro_torch.launch.profile_engine import (SLO_GRID,
+                                                   calibrated_clock,
+                                                   measured_engine,
                                                    measured_tpot_slo,
                                                    smoke_config,
                                                    smoke_requests)
 
     records = calibration["records"]
     cfg, ecfg = smoke_config()
-    eng = measured_engine(records, calibration["hw"])
+    rest_eff = calibration["cal"]["rest"]["mem_eff"]
+    eng = measured_engine(records, calibration["hw"], rest_mem_eff=rest_eff)
     slo = measured_tpot_slo(records["decode"], eng.times_fn, cfg, ecfg)
+    # the SLO the clock would certify with the preset's own rest term (the
+    # layers' mem_eff applied to the LM head)
+    preset_clock = calibrated_clock(cfg, calibration["hw"])
+    slo_preset_rest = measured_tpot_slo(records["decode"], preset_clock, cfg,
+                                        ecfg)
+    rest_ms = {name: fn(8, MAX_SEQ, "decode").t_rest_s * 1e3
+               for name, fn in (("fitted_apart", eng.times_fn),
+                                ("preset", preset_clock))}
     # the (8, 1024) bucket's own smallest feasible SLO in the record alone,
     # beside the one the engine can certify
     max_i = eng._max_interval_now()
@@ -959,6 +1161,12 @@ def measured_engine_phase(calibration: dict) -> dict:
     report = eng.trace.audit()
     modeled = [it.dt_s * 1e3 for it in eng.trace.iterations
                if it.decode_batch > 0 and not it.admitted]
+    # the record's (no-offload) stack times of the buckets the engine runs:
+    # the one-shot prefill at (1, 1024) and full-batch decode at (8, 1024)
+    units = eng.num_units
+    stack_ms = {ph: (lambda mt: (mt.t_compute_s * units + mt.t_rest_s)
+                     * 1e3)(calibration["measured"][(ph, b, MAX_SEQ)])
+                for ph, b in (("prefill", 1), ("decode", 8))}
     summary = {
         "tpot_slo_s_8x1024_bucket_alone": slo_own,
         "decode_steps_within_8x1024_bucket_slo": sum(
@@ -966,6 +1174,9 @@ def measured_engine_phase(calibration: dict) -> dict:
         "tpot_slo_s": slo,
         "decode_steps_within_tpot_slo": sum(
             ms <= slo * 1e3 for ms in eng.decode_ms) / len(eng.decode_ms),
+        "certified_over_bucket_slo": slo / slo_own,
+        "tpot_slo_s_with_the_presets_rest_term": slo_preset_rest,
+        "modeled_rest_ms_8x1024": rest_ms,
         "modeled_iter_s_at_max_interval_host_tier_streaming": modeled_bound,
         "max_interval": max_i, "slo_ok_modeled_clock": out["slo_ok"],
         "modeled_decode_iter_ms_median": statistics.median(modeled),
@@ -974,12 +1185,17 @@ def measured_engine_phase(calibration: dict) -> dict:
         "tokens": out["tokens"],
         "intervals": sorted({it.interval for it in eng.trace.iterations}),
         "decode_iters": len(eng.decode_ms),
+        "decode_graph_captures": eng.decode_graph_captures,
+        "record_decode_8x1024_stack_ms": stack_ms["decode"],
         "prefill_stream_ms_median": statistics.median(eng.prefill_ms),
+        "record_prefill_1x1024_stack_ms": stack_ms["prefill"],
         "host_weight_bytes": eng.host_weight_bytes,
         "launches": launches, "audit_ok": report.ok,
         "audit_checks": report.checks, "run_s": run_s,
         "wall_modeled_s": out["wall_modeled_s"], "hardware": eng.hw.name,
         "record_measure": eng.rec["decode"].measure,
+        "placement": placement_link(eng),
+        "calibration_link_gb_s": calibration["cal"]["link"]["gb_s"],
     }
     log("measured_engine: " + json.dumps(summary))
     if out["finished"] != len(reqs):
@@ -1063,6 +1279,234 @@ def baselines_phase(calibration: dict, measured: dict) -> None:
                                  f"policies'")
     log("baselines_logits: bitwise equal across policies "
         f"{all(torch.equal(lg, first) for lg in logits.values())}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the fleet, peer migration and disaggregated roles
+# ---------------------------------------------------------------------------
+
+FLEET_MAX_SEQ, FLEET_PAGE = 96, 16       # tests/test_fleet.py's geometry
+
+
+def fleet_phase(card: str) -> dict:
+    """``tests/test_fleet.py`` and ``tests/differential/test_disagg.py`` at
+    qwen2.5-3b's full width, every instance on this one card (one set of
+    weights; the peer link stays modeled, ``fleet.DEFAULT_PEER_LINK``): a
+    2-instance affinity fleet, a round-robin fleet, one big instance
+    (``max_batch`` 8 against 4) and a 1 prefill + 1 decode disaggregated
+    fleet serve the same multi-tenant trace; then one request migrates
+    across instances mid-decode. Fleets of the instance shape must agree
+    bit for bit; the big instance's tokens where they differ must start
+    differing at a numeric tie (the DualEngine rule). Every audit clean, at
+    least one migration and one handoff. Returns the decode and flash
+    kernels' launches on the fleet path."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import costs
+    from repro_torch.core.hardware import PRESETS
+    from repro_torch.core.interval import NO_OFFLOAD, OffloadPlan
+    from repro_torch.data.workload import (SLOClass, WorkloadConfig,
+                                           generate_workload)
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile_engine import SLO_GRID
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.models.model import build_model
+    from repro_torch.models.spec import tree_map
+    from repro_torch.models.transformer import pattern_info
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.fleet import Fleet
+    from repro_torch.serving.request import Request, State
+
+    cfg = get_config("qwen2.5-3b")
+    _, units = pattern_info(cfg)
+    page_bytes = FLEET_PAGE * costs.kv_cache_bytes(cfg, 1, 1)
+    weights = OffloadPlan(units, NO_OFFLOAD).device_bytes(
+        costs.unit_weight_bytes(cfg))
+    params = tree_map(lambda t: t.cpu().pin_memory(), build_model(cfg).init(
+        torch.Generator("cuda").manual_seed(0), "cuda"))
+    logits: dict[str, dict[int, list]] = {}
+
+    def instance(name, scale=1, role="mixed", dedup=True, extra=6):
+        ecfg = EngineConfig(
+            max_batch=4 * scale, max_seq=FLEET_MAX_SEQ, page_size=FLEET_PAGE,
+            hbm_budget_bytes=weights + scale * extra * page_bytes,
+            host_kv_bytes=scale * 40 * page_bytes, prefix_dedup=dedup,
+            preemption=True, host_prefix_cache_pages=scale * 10 * dedup,
+            disk_latency_s=1e-7, role=role, peer_latency_s=1e-7)
+        eng = build_engine(name, cfg, PRESETS["h100"], ecfg, SLO_GRID,
+                           params=params)
+        if name not in ("aff0", "aff1", "big"):
+            return eng
+        seen = logits.setdefault(name, {})
+        greedy = eng._greedy
+
+        def record(req, lg):
+            seen.setdefault(req.rid, []).append(lg.copy())
+            return greedy(req, lg)
+
+        eng._greedy = record
+        return eng
+
+    wcfg = WorkloadConfig(
+        seed=7, process="poisson", rate_per_s=3000.0, mean_rounds=2.0,
+        mean_think_s=0.0005, tenants=2, system_prompt_len=48,
+        median_turn_len=12, turn_len_sigma=0.3, max_prompt_len=80,
+        mean_output_len=6.0, max_output_len=10, vocab_size=128,
+        slo_classes=(SLOClass("standard", 4.0, 0.05, weight=1.0),))
+    reqs = generate_workload(wcfg, 20)
+
+    def clone():
+        return [Request(rid=r.rid, prompt=r.prompt.copy(),
+                        max_new_tokens=r.max_new_tokens,
+                        ttft_slo_s=r.ttft_slo_s, tpot_slo_s=r.tpot_slo_s,
+                        arrival_s=r.arrival_s, tenant=r.tenant) for r in reqs]
+
+    def tokens(engines):
+        return {r.rid: tuple(r.generated) for e in engines
+                for r in e.finished}
+
+    DA.launches = FA.launches = 0
+    t0 = time.perf_counter()
+    runs, toks, by_rid = {}, {}, {}
+    layouts = {"affinity": [("aff0", "mixed"), ("aff1", "mixed")],
+               "round_robin": [("rr0", "mixed"), ("rr1", "mixed")],
+               "disagg": [("p0", "prefill"), ("d0", "decode")]}
+    for name, layout in layouts.items():
+        engines = [instance(n, role=r, dedup=name != "disagg",
+                            extra=8 if name == "disagg" else 6)
+                   for n, r in layout]
+        fleet = Fleet(engines, policy="round_robin" if name == "round_robin"
+                      else "affinity")
+        out = fleet.run(clone(), max_iters=50_000)
+        ok, violations = fleet.audit()
+        done = out["per_request"]
+        runs[name] = {
+            "finished": out["finished"], "rejected": out["rejected"],
+            "tokens": out["tokens"], "slo_ok_modeled_clock": out["slo_ok"],
+            "slo_attainment": sum(m["ttft_ok"] and m["tpot_ok"]
+                                  for m in done) / max(len(done), 1),
+            "migrations": out["migrations"], "handoffs": out["handoffs"],
+            "handoff_bytes": out["handoff_bytes"],
+            "reroutes": out["reroutes"], "audit_ok": ok,
+            "audit_violations": violations[:5],
+            "decode_stream_ms_median": statistics.median(
+                [ms for e in engines for ms in e.decode_ms] or [math.nan]),
+            "decode_graph_captures": {e.name: e.decode_graph_captures
+                                      for e in engines},
+            "per_instance_finished": {e.name: len(e.finished)
+                                      for e in engines},
+            "wall_modeled_s": out["wall_modeled_s"]}
+        toks[name] = tokens(engines)
+        by_rid[name] = {rid: lg for e in engines
+                        for rid, lg in logits.get(e.name, {}).items()}
+        if not ok:
+            raise AssertionError(f"fleet {name}: audit {violations[:5]}")
+        del fleet, engines
+    big = instance("big", scale=2)
+    out = big.run(clone(), max_iters=50_000)
+    runs["big_instance"] = {
+        "finished": out["finished"], "slo_ok_modeled_clock": out["slo_ok"],
+        "audit_ok": big.trace.audit().ok,
+        "decode_graph_captures": big.decode_graph_captures}
+    toks["big_instance"] = tokens([big])
+    by_rid["big_instance"] = logits["big"]
+    del big
+
+    # one forced migration (tests/test_fleet.py's scenario): a victim
+    # decodes on m0, parks, a waiter keeps m0 overloaded, the fleet moves
+    # the victim to m1; its tokens against a never-migrated engine
+    rng = np.random.default_rng(11)
+    prompt = rng.integers(0, 128, 40).astype(np.int32)
+    alone = instance("alone")
+    ref = Request(rid=0, prompt=prompt.copy(), max_new_tokens=12,
+                  ttft_slo_s=5.0, tpot_slo_s=1.0)
+    alone.run([ref], max_iters=200)
+    del alone
+    e0, e1 = instance("m0"), instance("m1")
+    fleet = Fleet([e0, e1], policy="affinity")
+    victim = Request(rid=0, prompt=prompt.copy(), max_new_tokens=12,
+                     ttft_slo_s=5.0, tpot_slo_s=1.0)
+    e0.submit(victim)
+    for _ in range(5):
+        e0.step()
+    slot = victim.slot
+    moves = e0.kv.park(victim.rid)
+    ops.copy_pages_to_host(e0.pool, [m.src_page for m in moves],
+                           e0.host_pool, [m.dst_page for m in moves])
+    victim.state, victim.parked_at_s = State.PREEMPTED, e0.clock_s
+    victim.preempt_count += 1
+    e0.trace.event("park", victim.rid, e0.clock_s, slot=slot)
+    victim.next_token = int(e0.tokens[slot])
+    victim.resume_pos = int(e0.pos[slot])
+    victim.slot = -1
+    e0.active[slot] = False
+    e0.slot_req[slot] = None
+    e0.scheduler.preempted.append(victim)
+    e0.submit(Request(rid=1, prompt=rng.integers(0, 128, 16).astype(np.int32),
+                      max_new_tokens=4, ttft_slo_s=5.0, tpot_slo_s=1.0,
+                      arrival_s=e0.clock_s))
+    fleet._maybe_migrate(e0)
+    fleet.run([], max_iters=5_000)
+    ok, violations = fleet.audit()
+    runs["migration"] = {
+        "migrations": fleet.migrations, "audit_ok": ok,
+        "victim_finished_on": next(e.name for e in (e0, e1) if any(
+            r is victim for r in e.finished)),
+        "victim_tokens_equal_never_migrated":
+            tuple(victim.generated) == tuple(ref.generated)}
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {"paged_decode_attention": DA.launches,
+                "flash_attention": FA.launches}
+    del fleet, e0, e1
+
+    # tokens: equal-shape fleets bit for bit; the big instance bit for bit
+    # or, per request, first differing at a tie of the affinity fleet's
+    # logits (and of the big instance's)
+    equal_shape = toks["affinity"] == toks["round_robin"] == toks["disagg"]
+    ties, beyond = 0, []
+    for rid, want in toks["affinity"].items():
+        got = toks["big_instance"].get(rid)
+        if got == want:
+            continue
+        k = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b)
+        la, lb = by_rid["affinity"][rid][k], by_rid["big_instance"][rid][k]
+        tie_a = ATOL + RTOL * abs(float(la[want[k]]))
+        if (la[want[k]] - la[got[k]] <= tie_a
+                and lb[got[k]] - lb[want[k]] <= tie_a):
+            ties += 1
+        else:
+            beyond.append(rid)
+    summary = {
+        "card": card, "run_s": run_s, "launches": launches, "runs": runs,
+        "tokens_bitwise_equal_shape_fleets": equal_shape,
+        "tokens_bitwise_big_instance": toks["big_instance"]
+        == toks["affinity"],
+        "big_instance_requests_at_a_tie": ties,
+        "per_request_tokens": {rid: list(t) for rid, t
+                               in sorted(toks["affinity"].items())}}
+    log("fleet: " + json.dumps(summary))
+    mig = runs["migration"]
+    if not (len(mig["migrations"]) == 1 and mig["audit_ok"]
+            and mig["victim_finished_on"] == "m1"
+            and mig["victim_tokens_equal_never_migrated"]):
+        raise AssertionError(f"forced migration: {mig}")
+    if runs["disagg"]["handoffs"] < 1:
+        raise AssertionError("the disaggregated fleet handed nothing off")
+    for name, r in runs.items():
+        if name != "migration" and r["finished"] != len(reqs):
+            raise AssertionError(f"{name}: {r['finished']} of {len(reqs)}")
+        if not r["audit_ok"]:
+            raise AssertionError(f"{name}: audit failed")
+    if not equal_shape or beyond:
+        raise AssertionError(f"fleet tokens differ: equal-shape fleets "
+                             f"{equal_shape}, big instance beyond a tie "
+                             f"for rids {beyond}")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"a kernel never ran on the fleet path: "
+                             f"{launches}")
+    return launches
 
 
 def reference_phase(name: str = "reference_lockstep",
@@ -1267,6 +1711,8 @@ def main() -> int:
     measured = measured_engine_phase(calibration)
     baselines_phase(calibration, measured)
     del calibration, measured
+    fleet_launches = fleet_phase(card)
+    log(f"fleet path launches: {json.dumps(fleet_launches)}")
     reference_phase()
     reference_phase("incremental_lockstep", incremental=True)
     reference_phase("disk_lockstep", disk=True)
@@ -1275,11 +1721,16 @@ def main() -> int:
               "smoke_cli_incremental_trace")
     cli_phase(("--preemption", "--disk-kv-gb", "0.0001", "--async-data-plane"),
               "smoke_cli_disk_trace", want={"kv_tiers": 3})
+    cli_phase(("--fleet", "2"), "smoke_cli_fleet_trace",
+              want={"instances": 2})
+    cli_phase(("--disagg",), "smoke_cli_disagg_trace",
+              want={"disagg": True})
 
     log(f"total seconds: {time.perf_counter() - t_start:.1f}")
     log(card)                       # name, power limit as nvidia-smi gives
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "check")
+            "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "check")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
                                   for kern in kernels]}))
     print(json.dumps({"ok": True, "device": {

@@ -7,12 +7,14 @@ optimal offloading interval for every SLO on the 2 ms grid.
 
 Two measurement modes:
   * "wallclock": time one scan unit on ``device`` (the default; the GPU
-    unless the caller asks for the CPU). The prefill unit runs the flash
-    kernel, as the reference's unit does its flash-equivalent attention;
-    the decode unit runs the engine's own per-layer call,
-    ``apply_block_decode_paged``, through the paged decode kernel over a
-    page pool in the engine's layout, where the reference times its
-    dense-cache oracle (ROADMAP Queue C: both compute the same values);
+    unless the caller asks for the CPU), on a GPU as a replay of a CUDA
+    graph captured from the unit, as the reference times its jitted unit.
+    The prefill unit runs the flash kernel, as the reference's unit does
+    its flash-equivalent attention; the decode unit runs the engine's own
+    per-layer call, ``apply_block_decode_paged``, through the paged decode
+    kernel over a page pool in the engine's layout, where the reference
+    times its dense-cache oracle (ROADMAP Queue C: both compute the same
+    values);
   * "model":     analytic roofline estimate from the hardware preset
     (recorded in the record's provenance field).
 """
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import costs
+from repro_torch.core import costs, graphs
 from repro_torch.core.hardware import HardwareModel
 from repro_torch.core.interval import LayerTimes, optimal_interval
 from repro_torch.core.record import PerformanceRecord
@@ -45,15 +47,22 @@ def _sync(device: torch.device) -> None:
 def _time_fn(fn: Callable, *args, repeats: int = 3,
              device: torch.device = torch.device("cpu")) -> float:
     """One warm-up call, then the median wall time of ``repeats`` calls. On
-    a GPU the device is synchronized before each start and after each call
-    (the reference's ``jax.block_until_ready``)."""
-    fn(*args)
+    a GPU the warm-up is the capture of ``fn`` into a CUDA graph
+    (``core.graphs``, the reference's ``jax.jit``) and each call a replay
+    of it, with the device synchronized before each start and after each
+    call (the reference's ``jax.block_until_ready``); the graph is freed
+    when the function returns."""
+    if device.type == "cuda":
+        call = graphs.Graphed(fn, args).replay
+    else:
+        fn(*args)
+        call = lambda: fn(*args)
     _sync(device)
     ts = []
     for _ in range(repeats):
         _sync(device)
         t0 = time.perf_counter()
-        fn(*args)
+        call()
         _sync(device)
         ts.append(time.perf_counter() - t0)
     return float(np.median(ts))

@@ -95,17 +95,18 @@ H100 = HardwareModel(
 # H100 with measured-equivalent factors and a measured host link, fitted by
 # repro_torch.launch.profile_engine.calibrate (chip_smoke.py's calibration
 # phase) on one "NVIDIA H100 80GB HBM3, 700.00 W" (nvidia-smi name, power
-# limit) from qwen2.5-3b's wall-clock units: compute_eff makes the datasheet
-# FLOP term give the measured prefill unit at (1, 1024), 2.498 ms for 166.4
-# GFLOP; mem_eff makes the byte term give the measured decode unit at (8,
-# 1024), 2.609 ms for 162.7 MB; host_link_bw and host_link_latency_s are the
-# slope and intercept of pinned host-to-device copies of one unit's
-# 154,153,984 bytes (2.971 ms) and of 4096 bytes (0.0258 ms). The factors
-# sit far below the A10's 0.69 / 0.58 because the unit is launch-bound
-# (about 70 launches per layer from Python), not compute- or memory-bound.
+# limit) from qwen2.5-3b's wall-clock units, each timed as a replay of its
+# CUDA graph: compute_eff makes the datasheet FLOP term give the measured
+# prefill unit at (1, 1024), 0.5398 ms for 166.4 GFLOP; mem_eff makes the
+# byte term give the measured decode unit at (8, 1024), 0.2584 ms for 162.7
+# MB; host_link_bw and host_link_latency_s are the slope and intercept of
+# pinned host-to-device copies of one unit's 154,153,984 bytes (2.905 ms)
+# and of 4096 bytes (0.0201 ms). The decode unit is many small kernels, so
+# its mem_eff sits below what one large GEMV reaches (the LM head measured
+# 0.73 of the datasheet bandwidth in the same run).
 H100_CALIBRATED = dataclasses.replace(
-    H100, name="h100_calibrated", compute_eff=0.06736, mem_eff=0.01862,
-    host_link_bw=52.34e9, host_link_latency_s=25.71e-6)
+    H100, name="h100_calibrated", compute_eff=0.3118, mem_eff=0.1880,
+    host_link_bw=53.43e9, host_link_latency_s=20.07e-6)
 
 PRESETS = {"a10": A10, "a10_calibrated": A10_CALIBRATED, "tpu_v5e": TPU_V5E,
            "h100": H100, "h100_calibrated": H100_CALIBRATED}

@@ -17,6 +17,12 @@ waits on the event that marks the end of the compute that last read it.
 This is what the reference's ``device_put`` prefetch with device shardings
 describes. On the CPU the prefetch is the identity, as in the reference
 engine.
+
+Each walk over the groups forks the side stream from the compute stream
+and joins it back at the end, and every event the ring waits on is
+recorded inside the same walk, so a walk can be captured whole into a
+CUDA graph (``core.graphs``): the copies become memcpy nodes that read the
+pinned offloaded stack ``place`` made.
 """
 from __future__ import annotations
 
@@ -123,26 +129,49 @@ def merge_model_params(split: Params, plan: OffloadPlan) -> Params:
 
 class WeightStream:
     """Two-slot device ring fed from the pinned-host offloaded stack
-    ``[G, ...]`` on a side CUDA stream (see the module docstring)."""
+    ``[G, ...]`` on a side CUDA stream (see the module docstring). A walk
+    calls ``begin``, then per group ``issue``, ``acquire`` and ``release``
+    in group order, then ``end``."""
 
     def __init__(self, host_units: Any, device: torch.device):
         self.host = host_units
         self.device = device
-        self.stream = torch.cuda.Stream(device)
+        # high priority: PyTorch hands out default-priority streams round
+        # robin from a pool of 32, so a default one can be the very stream
+        # a CUDA graph is captured on, and the ring's copies would then
+        # run in line with the compute instead of beside it
+        self.stream = torch.cuda.Stream(device, priority=-1)
         self.slots = [tree_map(lambda t: torch.empty(
             t.shape[1:], dtype=t.dtype, device=device), host_units)
             for _ in range(2)]
         self.ready = [torch.cuda.Event() for _ in range(2)]
         self.free = [torch.cuda.Event() for _ in range(2)]
+        self.fork = torch.cuda.Event()
+        self.join = torch.cuda.Event()
+        self._released = [False, False]   # free[slot] recorded this walk
         self.copies = 0
+
+    def begin(self) -> None:
+        """Fork: the side stream starts after the work queued on the
+        compute stream so far, which covers every read of the ring by
+        earlier walks."""
+        compute = torch.cuda.current_stream(self.device)
+        if compute == self.stream:
+            raise RuntimeError("the weight ring's side stream is the "
+                               "compute stream: its copies would not "
+                               "overlap the compute")
+        self.fork.record(compute)
+        self.stream.wait_event(self.fork)
+        self._released = [False, False]
 
     def issue(self, g: int) -> int:
         """Start copying unit ``g`` into its ring slot; returns the slot."""
         slot = g % 2
         with torch.cuda.stream(self.stream):
-            # the compute that last read this slot must finish before the
-            # slot is rewritten
-            self.stream.wait_event(self.free[slot])
+            if self._released[slot]:
+                # the compute that last read this slot must finish before
+                # the slot is rewritten
+                self.stream.wait_event(self.free[slot])
             tree_map(lambda d, h: d.copy_(h[g], non_blocking=True),
                      self.slots[slot], self.host)
             self.ready[slot].record(self.stream)
@@ -157,6 +186,13 @@ class WeightStream:
     def release(self, slot: int) -> None:
         """Mark the end of the compute that read the slot."""
         self.free[slot].record(torch.cuda.current_stream(self.device))
+        self._released[slot] = True
+
+    def end(self) -> None:
+        """Join: the compute stream waits for the side stream's last
+        operation (a capture fails on a fork left unjoined)."""
+        self.join.record(self.stream)
+        torch.cuda.current_stream(self.device).wait_event(self.join)
 
 
 # ---------------------------------------------------------------------------
@@ -171,7 +207,7 @@ class OffloadRuntime:
     else to the device; on the CPU nothing moves."""
 
     def __init__(self, model: Model, plan: OffloadPlan,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         self.model = model
         self.plan = plan
         self.device = torch.device(device)
@@ -215,6 +251,8 @@ class OffloadRuntime:
                 raise ValueError("on a GPU, pass the parameter tree that "
                                  "this runtime's place() returned")
         res_c, off_c = [], []
+        if stream is not None:
+            stream.begin()
         for gi in range(g):
             slot = stream.issue(gi) if stream is not None else None
             group = []
@@ -231,6 +269,8 @@ class OffloadRuntime:
             if stream is not None:
                 stream.release(slot)
             off_c.append(c)
+        if stream is not None:
+            stream.end()
         n_tail = tree_leaves(blk["tail"])[0].shape[0]
         tail_c = []
         for t in range(n_tail):

@@ -27,16 +27,19 @@ on the serving thread and on its background worker) and staged pages. The
 Chrome trace is written under ``--out``. Needs a GPU.
 
 The module also holds what ``chip_smoke.py``'s measured phases call:
-``calibrate`` (the per-unit times and host link measured on the card, and
-the ``H100_CALIBRATED`` values fitted from them), ``measured_records`` (the
-analyzer's wall-clock records on the card),
-``measured_engine`` (the smoke configuration served against them),
+``calibrate`` (the per-unit times, the host link and the LM-head rest
+measured on the card, and the ``H100_CALIBRATED`` values fitted from them),
+``measured_records`` (the analyzer's wall-clock records on the card),
+``measured_engine`` (the smoke configuration served against them, its
+clock ``calibrated_clock``),
 ``baseline_intervals`` / ``policy_decode`` (the paper's Select-N vs
 DeepSpeed vs FlexGen comparison, run on the card).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import functools
 import json
 import math
 import time
@@ -50,12 +53,14 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import costs
 from repro_torch.core.analyzer import (MeasuredTimes, PerformanceAnalyzer,
-                                       decode_pool, determinism_check,
+                                       _time_fn, decode_pool,
+                                       determinism_check,
                                        paged_decode_inputs, unit_time_stats)
 from repro_torch.core.baselines import (FlexGenDecision, deepspeed_plan,
                                         flexgen_decision,
                                         flexgen_equivalent_interval)
 from repro_torch.core.coordinator import max_interval_for_memory
+from repro_torch.core.graphs import Graphed
 from repro_torch.core.hardware import H100, PRESETS, HardwareModel
 from repro_torch.core.interval import (NO_OFFLOAD, LayerTimes, OffloadPlan,
                                        iter_time_with_interval_kv)
@@ -64,6 +69,8 @@ from repro_torch.core.memory_manager import (OffloadRuntime,
 from repro_torch.core.record import PerformanceRecord
 from repro_torch.core.slo import SLO_GRANULARITY_S
 from repro_torch.launch.serve import build_engine, record_buckets
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 from repro_torch.models.model import build_model
 from repro_torch.models.transformer import pattern_info
 from repro_torch.serving.engine import EngineConfig, ServingEngine
@@ -269,24 +276,93 @@ def fit_calibration(cfg: ModelConfig, prefill_s: float, decode_s: float,
 def unit_enqueue_s(an: PerformanceAnalyzer, batch: int, seq: int) -> dict:
     """The wall-clock decode unit's host enqueue time (the call returning,
     no synchronize) beside its CUDA-event time (first launch to last),
-    medians of 10 calls after a warm-up. Equal times mean the card waits on
-    the host: the unit is launch-bound."""
+    medians of 10 calls after a warm-up, called eagerly and as a replay of
+    its CUDA graph (the analyzer's timed call). Equal times mean the card
+    waits on the host: the call is launch-bound."""
     fn, args = an.unit_call(batch, seq, "decode")
-    fn(*args)
-    enqueue, event = [], []
-    for _ in range(10):
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
+    out = {}
+    for name, call in (("eager", lambda: fn(*args)),
+                       ("graph", Graphed(fn, args).replay)):
+        call()
+        enqueue, event = [], []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            call()
+            end.record()
+            enqueue.append(time.perf_counter() - t0)
+            end.synchronize()
+            event.append(start.elapsed_time(end) / 1e3)
+        out[f"{name}_enqueue_s"] = float(np.median(enqueue))
+        out[f"{name}_event_s"] = float(np.median(event))
+    return out
+
+
+def eager_unit_stats(an: PerformanceAnalyzer, batch: int, seq: int,
+                     phase: str, iters: int = 5) -> dict:
+    """``unit_time_stats`` of the unit called eagerly, one launch at a time
+    from Python (how the analyzer timed it before it timed graph replays):
+    each of ``iters`` measurements is one warm-up call and the median of 3
+    synchronized calls."""
+    fn, args = an.unit_call(batch, seq, phase)
+    ts = []
+    for _ in range(iters):
         fn(*args)
-        end.record()
-        enqueue.append(time.perf_counter() - t0)
-        end.synchronize()
-        event.append(start.elapsed_time(end) / 1e3)
-    return {"enqueue_s": float(np.median(enqueue)),
-            "event_s": float(np.median(event))}
+        one = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            one.append(time.perf_counter() - t0)
+        ts.append(float(np.median(one)))
+    ts = np.asarray(ts)
+    return {"mean_s": float(ts.mean()), "std_s": float(ts.std()),
+            "cv": float(ts.std() / ts.mean())}
+
+
+def measure_rest(an: PerformanceAnalyzer, batch: int) -> float:
+    """The per-iteration rest on the card: the final norm and the LM head
+    over ``batch`` decode rows, timed as the analyzer times a unit (graph
+    replays on a GPU)."""
+    m1, params = an._single_unit_params()
+    cfg = m1.cfg
+    x = torch.zeros((batch, 1, cfg.d_model), dtype=params["embed"].dtype,
+                    device=an.device)
+
+    def rest(h):
+        return T.lm_logits(cfg, params,
+                           L.apply_norm(cfg, params["final_norm"], h))
+
+    return _time_fn(rest, x, device=an.device)
+
+
+def fit_rest(cfg: ModelConfig, rest_s: float) -> float:
+    """The HBM fraction that makes the analyzer's model-mode rest term (the
+    LM head's weight bytes over the datasheet bandwidth) give the measured
+    rest: the layers' ``mem_eff`` is fitted from a unit of many small
+    kernels, the rest is one large bandwidth-bound GEMV."""
+    return cfg.padded_vocab() * cfg.d_model * 2 / (H100.hbm_bw * rest_s)
+
+
+def calibrated_clock(cfg: ModelConfig, hw: HardwareModel,
+                     rest_mem_eff: float | None = None,
+                     device: str = "cuda"):
+    """The modeled clock of ``hw`` (the analyzer in model mode); with
+    ``rest_mem_eff``, its rest term is the one fitted apart (``fit_rest``),
+    every other term the preset's."""
+    clock = PerformanceAnalyzer(cfg, hw, measure="model", device=device)
+    if rest_mem_eff is None:
+        return clock.layer_times
+    rest = PerformanceAnalyzer(
+        cfg, dataclasses.replace(hw, mem_eff=rest_mem_eff), measure="model",
+        device=device)
+    return lambda b, s, phase: dataclasses.replace(
+        clock.layer_times(b, s, phase),
+        t_rest_s=rest.measure_times(b, s, phase).t_rest_s)
 
 
 def calibrate(cfg: ModelConfig) -> dict:
@@ -294,18 +370,26 @@ def calibrate(cfg: ModelConfig) -> dict:
     per-unit decode time at (8, 1024) with its CV over 5 measurements
     (``determinism_check``), the prefill unit at (1, 1024) the same way, and
     the host link over one unit's weight bytes; returns them with the
-    fitted values, and the decode unit's enqueue and device times
-    (``unit_enqueue_s``)."""
+    fitted values, the decode unit's enqueue and device times
+    (``unit_enqueue_s``), beside each unit the same unit called eagerly
+    (``eager_unit_stats``), and the rest at the decode batch with its own
+    fitted HBM fraction (``measure_rest``, ``fit_rest``)."""
     db, ds = CALIBRATION_BUCKETS["decode"]
     pb, ps = CALIBRATION_BUCKETS["prefill"]
     decode = determinism_check(cfg, db, ds)
     an = PerformanceAnalyzer(cfg, H100, measure="wallclock")
     prefill = unit_time_stats(an, pb, ps, "prefill")
     link = measure_link(costs.unit_weight_bytes(cfg))
+    rest_s = measure_rest(an, db)
     return {"card": torch.cuda.get_device_name(0),
+            "rest": {"batch": db, "s": rest_s,
+                     "mem_eff": fit_rest(cfg, rest_s)},
             "decode": {"batch": db, "seq": ds, **decode,
-                       **unit_enqueue_s(an, db, ds)},
-            "prefill": {"batch": pb, "seq": ps, **prefill}, "link": link,
+                       **unit_enqueue_s(an, db, ds),
+                       "eager": eager_unit_stats(an, db, ds, "decode")},
+            "prefill": {"batch": pb, "seq": ps, **prefill,
+                        "eager": eager_unit_stats(an, pb, ps, "prefill")},
+            "link": link,
             "fitted": fit_calibration(cfg, prefill["mean_s"],
                                       decode["mean_s"], link)}
 
@@ -357,19 +441,21 @@ def measured_tpot_slo(rec_decode: PerformanceRecord, times_fn,
 
 
 def measured_engine(records: dict[str, PerformanceRecord],
-                    hw: HardwareModel, device: str = "cuda") -> ServingEngine:
+                    hw: HardwareModel, device: str = "cuda", *,
+                    rest_mem_eff: float | None = None) -> ServingEngine:
     """``smoke_engine``'s configuration, admitting and choosing intervals
     from ``records`` measured on the card (``measured_records``). Its
     modeled clock (``times_fn``) is ``hw`` in model mode, the calibrated
-    preset fitted in the same run as the records: the engine calls
-    ``times_fn`` inside every iteration, and in wall-clock mode each call
-    would time a unit on the card in the middle of serving; the reference,
-    too, measures only in its offline stage."""
+    preset fitted in the same run as the records, with the rest term
+    fitted apart when ``rest_mem_eff`` is given (``calibrated_clock``): the
+    engine calls ``times_fn`` inside every iteration, and in wall-clock
+    mode each call would time a unit on the card in the middle of serving;
+    the reference, too, measures only in its offline stage."""
     cfg, ecfg = smoke_config()
-    clock = PerformanceAnalyzer(cfg, hw, measure="model", device=device)
     return ServingEngine("measured", build_model(cfg), hw,
                          records["prefill"], records["decode"],
-                         clock.layer_times, ecfg, device=device)
+                         calibrated_clock(cfg, hw, rest_mem_eff, device),
+                         ecfg, device=device)
 
 
 def baseline_intervals(cfg: ModelConfig, rec_decode: PerformanceRecord,
@@ -394,7 +480,8 @@ def policy_decode(cfg: ModelConfig, params: dict, interval: int, *,
                   batch: int, seq: int, steps: int,
                   device: str = "cuda") -> dict:
     """``steps`` decode iterations of ``batch`` rows at ``seq`` through
-    ``OffloadRuntime.paged_decode_step`` at ``interval``, after one warm-up,
+    ``OffloadRuntime.paged_decode_step`` at ``interval`` (on a GPU as
+    replays of its CUDA graph, as the engine runs it), after one warm-up,
     on a runtime placed for this plan alone (offloaded units in pinned host
     memory, the rest on the card). Returns the plan's weight bytes on each
     side, each step's stream time on a GPU (CUDA events, as the engine's
@@ -408,15 +495,21 @@ def policy_decode(cfg: ModelConfig, params: dict, interval: int, *,
                                         device), batch, seq)
     tokens = torch.zeros((batch,), dtype=torch.int32, device=device)
     on_card = torch.device(device).type == "cuda"
+    step = functools.partial(rt.paged_decode_step, placed)
+    inputs = (tokens, d.pos, d.pool, d.block_tables, d.context_lens,
+              d.write_frames, d.write_offsets)
+    if on_card:                      # as the engine runs its step
+        call = Graphed(step, inputs, [(rt._stream, "copies")]
+                       if rt._stream is not None else []).replay
+    else:
+        call = lambda: step(*inputs)
     ms = []
     for _ in range(steps + 1):
         if on_card:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-        logits, _ = rt.paged_decode_step(
-            placed, tokens, d.pos, d.pool, d.block_tables, d.context_lens,
-            d.write_frames, d.write_offsets)
+        logits, _ = call()
         if on_card:
             end.record()
             end.synchronize()

@@ -16,14 +16,22 @@ chunk-prefill kernel.
 a file with ``--disk-backing-path``), and ``--async-data-plane`` queues
 its page copies for the next iteration boundary; the summary's
 ``data_plane`` then also reports the wall seconds the copies blocked the
-serving thread and those the background worker absorbed. Flags of paths
-not ported yet exit with an error that names their ROADMAP item:
-``--fleet``/``--peer``/``--disagg`` (and the fleet's ``--router``/
-``--prefill-instances``/``--decode-instances``).
+serving thread and those the background worker absorbed. ``--peer``
+starts a second engine sharing the host link to exercise the per-bus
+coordinator. ``--fleet N`` starts N instances behind a KV-affinity
+``Router`` (``--router round_robin`` for the baseline) with cross-instance
+preemption and the fleet-wide link-budget coordinator; ``--disagg`` splits
+the fleet into ``--prefill-instances`` prefill-role and
+``--decode-instances`` decode-role engines, which hand completed prefills
+off through the PEER tier. A fleet run always audits every instance's
+trace plus the cross-instance conservation of migrated and handed-off
+bytes, and exits 3 on any violation. Every instance computes on
+``--device``; on one card the instances share it.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 
 import numpy as np
@@ -36,6 +44,7 @@ from repro_torch.data.pipeline import DataConfig, request_stream
 from repro_torch.data.workload import SLOClass, WorkloadConfig, generate_workload
 from repro_torch.models.model import build_model
 from repro_torch.serving.engine import EngineConfig, ServingEngine
+from repro_torch.serving.fleet import Fleet
 from repro_torch.serving.request import Request
 
 
@@ -183,17 +192,6 @@ def main(argv=None) -> dict:
                          "schema: per-iteration records, request events, "
                          "counter footer, audit report) as JSON")
     args = ap.parse_args(argv)
-    refused = [
-        (args.fleet > 1 or args.router != "affinity", "--fleet/--router",
-         "Queue A item 7 (fleet)"),
-        (args.peer, "--peer", "Queue A item 7 (fleet and coordinator peers)"),
-        (args.disagg or args.prefill_instances != 1
-         or args.decode_instances != 1, "--disagg",
-         "Queue A item 7 (disaggregated fleet)"),
-    ]
-    for hit, flag, item in refused:
-        if hit:
-            ap.error(f"{flag} is not ported yet: ROADMAP {item}")
     if args.disk_kv_gb > 0 and args.host_kv_gb <= 0:
         ap.error("--disk-kv-gb requires a host tier to stage through: "
                  "set --host-kv-gb > 0")
@@ -201,6 +199,27 @@ def main(argv=None) -> dict:
         ap.error("--incremental-prefill is incompatible with "
                  "--prefix-dedup (shared prompt frames would need COW "
                  "inside the chunk kernel)")
+    if args.autotune and args.peer:
+        ap.error("--autotune and --peer are mutually exclusive: when a "
+                 "link is shared, the per-bus coordinator owns the "
+                 "interval")
+    if args.fleet > 1 and args.peer:
+        ap.error("--fleet subsumes --peer: the fleet coordinates every "
+                 "instance on the shared link already")
+    if args.fleet > 1 and args.autotune:
+        ap.error("--fleet and --autotune are mutually exclusive: the "
+                 "fleet-wide link-budget coordinator owns the interval")
+    if args.disagg:
+        if args.fleet > 1 or args.peer or args.autotune:
+            ap.error("--disagg builds its own role-typed fleet: drop "
+                     "--fleet/--peer/--autotune")
+        if args.host_kv_gb <= 0:
+            ap.error("--disagg requires a host KV tier (--host-kv-gb > 0): "
+                     "prefill instances park completed prefills on host "
+                     "before the peer handoff")
+        if args.prefill_instances < 1 or args.decode_instances < 1:
+            ap.error("--disagg needs at least one prefill and one decode "
+                     "instance")
     cfg = reduce_config(get_config(args.arch))
     hw = PRESETS[args.hw]
     ecfg = EngineConfig(max_batch=args.max_batch, max_seq=args.max_seq,
@@ -217,7 +236,14 @@ def main(argv=None) -> dict:
                         incremental_prefill=args.incremental_prefill,
                         autotune=args.autotune)
     slos = [0.002 * k for k in range(1, 120)]
-    eng = build_engine("e0", cfg, hw, ecfg, slos, device=args.device)
+    build = lambda name, c: build_engine(name, cfg, hw, c, slos,
+                                         device=args.device)
+    eng = None
+    if not args.disagg:
+        eng = build("e0", ecfg)
+    peers = []
+    if args.peer:
+        peers.append(build("e1", ecfg))
 
     ttft_slo = args.ttft_slo_ms / 1e3
     tpot_slo = args.tpot_slo_ms / 1e3
@@ -261,7 +287,42 @@ def main(argv=None) -> dict:
                         ttft_slo_s=r.ttft_slo_s, tpot_slo_s=r.tpot_slo_s,
                         arrival_s=r.arrival_s) for r in stream]
 
-    out = eng.run(reqs, submit_all=args.submit_all)
+    if args.disagg or args.fleet > 1:
+        if args.disagg:
+            # parked staging + resume are the handoff transport: force the
+            # preemption machinery on regardless of the flag
+            pcfg = dataclasses.replace(ecfg, role="prefill", preemption=True)
+            dcfg = dataclasses.replace(ecfg, role="decode", preemption=True)
+            engines = ([build(f"p{i}", pcfg)
+                        for i in range(args.prefill_instances)]
+                       + [build(f"d{i}", dcfg)
+                          for i in range(args.decode_instances)])
+        else:
+            engines = [eng] + [build(f"e{i}", ecfg)
+                               for i in range(1, args.fleet)]
+        fleet = Fleet(engines, policy=args.router, link_bw=hw.host_link_bw)
+        out = fleet.run(reqs, submit_all=args.submit_all)
+        summary = {k: v for k, v in out.items() if k != "per_request"}
+        # per-instance conservation invariants plus the fleet's
+        # cross-instance checks: migrated and handed-off bytes exported ==
+        # imported, per link — exit 3 on any violation
+        ok, violations = fleet.audit()
+        summary["audit"] = {"ok": ok, "violations": violations[:20]}
+        if args.trace_out:
+            for e in engines:
+                e.trace.write_perfetto(f"{args.trace_out}.{e.name}")
+        if args.metrics_out:
+            for e in engines:
+                e.trace.write_trace(f"{args.metrics_out}.{e.name}",
+                                    audit=e.trace.audit())
+        print(json.dumps(summary, indent=1))
+        if not ok:
+            raise SystemExit(3)
+        return out
+
+    out = eng.run(reqs, peers=peers or None,
+                  link_bw=hw.host_link_bw if peers else None,
+                  submit_all=args.submit_all)
     summary = {k: v for k, v in out.items() if k != "per_request"}
     summary["final_interval"] = (None if eng.interval >= 10**9
                                  else eng.interval)

@@ -24,7 +24,9 @@ Hazard rules (the planning-order guarantees the token-exactness gates pin):
 * Host->disk retirements run on the background worker. A drain waits for
   in-flight background jobs before executing any op that touches a frame
   a background job still reads or writes, and the engine guards its own
-  host-pool writes (``guard_host_writes``) the same way.
+  host-pool writes (``guard_host_writes``) the same way. A retirement that
+  a later op of the same drain touches runs inline instead, in queue
+  order: that op would wait for the worker at once.
 * Every drain starts by waiting out the previous iteration's background
   jobs: a staging issued in iteration i is complete — and counted in the
   completion totals — by the boundary of i+1.
@@ -33,6 +35,10 @@ Copies that touch the device pool (d2h, h2d, disk2d, d2disk) run inline
 and blocking through ``kernels.ops``, in sync and async mode alike; only
 the host->disk leg overlaps. The worker thread touches CPU tensors only
 (the host pool, pinned on a GPU, and the disk pool) and makes no CUDA call.
+It copies each page's bits with one ``numpy.copyto`` between views of the
+two pools: a single-threaded memcpy that releases the interpreter lock, with
+no temporary and no call into torch's intra-op thread pool, so it does not
+contend with the serving thread for either.
 
 The issued/completed page counters feed the telemetry plane (per-iteration
 ``staged_issued_pages``/``staged_completed_pages`` and the footer
@@ -45,6 +51,7 @@ import threading
 import time
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops
@@ -72,6 +79,10 @@ class CopyStageEngine:
                  async_mode: bool = False, background: bool = True):
         self.host_pool = host_pool
         self.disk_pool = disk_pool
+        # the pools' bits as numpy arrays sharing their memory (the worker's
+        # copy routine, ``_host_to_disk``)
+        self._host_bits = host_pool.view(torch.int16).numpy()
+        self._disk_bits = disk_pool.view(torch.int16).numpy()
         self._get_pool = get_pool
         self._set_pool = set_pool
         self.async_mode = async_mode
@@ -96,6 +107,12 @@ class CopyStageEngine:
         self._bg_disk: set[int] = set()   # disk frames in-flight jobs write
         self._jobs: list[tuple[list[int], list[int]]] = []
         self._worker: threading.Thread | None = None
+        if self._background:
+            # started with the plane, so no drain on the serving thread
+            # pays for the thread's start
+            self._worker = threading.Thread(
+                target=self._worker_loop, daemon=True, name="kv-copy-stage")
+            self._worker.start()
 
     # ----- staging ---------------------------------------------------------
 
@@ -127,6 +144,12 @@ class CopyStageEngine:
         the iteration; everything else executes inline."""
         if not self.async_mode:
             return
+        with self._cv:
+            if not self._queue and not self._bg_pending:
+                # nothing queued, nothing in flight: no copy to time
+                self._bg_host.clear()
+                self._bg_disk.clear()
+                return
         t0 = time.perf_counter()
         try:
             self._drain_locked()
@@ -147,7 +170,11 @@ class CopyStageEngine:
                 dsts.append(q[i][2])
                 seen.add(q[i][2])
                 i += 1
-            if kind == "h2disk" and self._background:
+            # a retirement that a later op of this same drain touches would
+            # be waited for at once: it runs inline, sparing the handoff
+            if kind == "h2disk" and self._background and not any(
+                    self._conflicts(k, [src], [dst], set(srcs), set(dsts))
+                    for k, src, dst in q[i:]):
                 self._submit_bg(srcs, dsts)
             else:
                 self._guard_group(kind, srcs, dsts)
@@ -227,17 +254,23 @@ class CopyStageEngine:
                 self._bg_host.clear()
                 self._bg_disk.clear()
                 return
-            bh, bd = self._bg_host, self._bg_disk
-            if kind in ("d2h", "disk2h"):          # writes host dsts
-                conflict = any(f in bh for f in dsts)
-            else:
-                conflict = False
-            if kind in ("disk2h", "disk2d"):       # reads disk srcs
-                conflict = conflict or any(f in bd for f in srcs)
-            if kind in ("h2disk", "d2disk"):       # writes disk dsts
-                conflict = conflict or any(f in bd for f in dsts)
+            conflict = self._conflicts(kind, srcs, dsts, self._bg_host,
+                                       self._bg_disk)
         if conflict:
             self._wait_bg()
+
+    @staticmethod
+    def _conflicts(kind: str, srcs: list[int], dsts: list[int],
+                   bg_host: set[int], bg_disk: set[int]) -> bool:
+        """Does a group of ``kind`` touch the frames of background jobs
+        that read host frames ``bg_host`` and write disk frames
+        ``bg_disk``? Read-read sharing is safe."""
+        if kind in ("d2h", "disk2h") and any(f in bg_host for f in dsts):
+            return True                         # writes host dsts
+        if kind in ("disk2h", "disk2d") and any(f in bg_disk for f in srcs):
+            return True                         # reads disk srcs
+        return kind in ("h2disk", "d2disk") and any(f in bg_disk
+                                                    for f in dsts)
 
     # ----- background worker -----------------------------------------------
 
@@ -251,11 +284,6 @@ class CopyStageEngine:
         if conflict:
             self._wait_bg()
         with self._cv:
-            if self._worker is None:
-                self._worker = threading.Thread(
-                    target=self._worker_loop, daemon=True,
-                    name="kv-copy-stage")
-                self._worker.start()
             self._bg_pending += 1
             self._bg_host.update(srcs)
             self._bg_disk.update(dsts)
@@ -304,9 +332,10 @@ class CopyStageEngine:
 
     def _host_to_disk(self, srcs: list[int], dsts: list[int]) -> None:
         """One batch of host->disk page copies (distinct dst frames), on
-        CPU tensors only: the background worker runs this."""
-        self.disk_pool.index_copy_(
-            0, _ids(dsts), self.host_pool.index_select(0, _ids(srcs)))
+        CPU memory only: the background worker runs this. Each page's bits
+        move with one ``numpy.copyto`` (see the module docstring)."""
+        for src, dst in zip(srcs, dsts):
+            np.copyto(self._disk_bits[dst], self._host_bits[src])
 
     def _exec_group(self, kind: str, srcs: list[int],
                     dsts: list[int]) -> None:

@@ -54,12 +54,20 @@ copy-stage engine (``serving.data_plane``), at once or, with
 ``async_data_plane``, queued in planning order and drained at the next
 iteration boundary with host->disk retirements on a background thread.
 
-Not ported yet (the constructor refuses them): the fleet roles with
-cross-instance migration and handoff (ROADMAP Queue A item 7).
+On a GPU the decode step runs as a CUDA graph, the port's counterpart of
+the reference's jitted step: one graph per (interval, page pool,
+placement), captured at the first step that needs it, its inputs copied
+into static buffers before each replay (``_decode_step_graph``).
+
+For a fleet (``serving.fleet``), an instance exports and imports parked
+requests (cross-instance migration) and, in a disaggregated fleet, hands
+freshly prefilled requests off to a decode instance; the tickets carry the
+host frames' bits (``MigrationTicket``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable
 
@@ -67,7 +75,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import costs
+from repro_torch.core import costs, graphs
 from repro_torch.core.coordinator import (InstanceState, coordinate,
                                           max_interval_for_memory)
 from repro_torch.core.hardware import HardwareModel
@@ -86,7 +94,8 @@ from repro_torch.serving.autotune import IntervalTuner, TunerGauges
 from repro_torch.serving.data_plane import CopyStageEngine
 from repro_torch.serving.kv_cache import PageConfig, PagedKVAllocator
 from repro_torch.serving.kv_offload import (DEVICE, DISK, HOST, LinkSpec,
-                                            SwapScheduler, TieredKVAllocator)
+                                            MigrationTicket, SwapScheduler,
+                                            TieredKVAllocator)
 from repro_torch.serving.request import Request, State
 from repro_torch.serving.scheduler import (ActiveInfo, IterationOutcome,
                                            IterationPlan, PlannedPreemption,
@@ -186,10 +195,6 @@ class ServingEngine:
         asks for the CPU). ``params``: an initialized parameter tree (the
         tests inject weights bridged from the reference); by default the
         weights are drawn from ``torch.Generator`` seed 0."""
-        if ecfg.role != "mixed":
-            raise NotImplementedError(
-                f"instance role {ecfg.role!r} belongs to the fleet, which is "
-                "not ported yet: ROADMAP Queue A item 7")
         self.device = torch.device(device)
         if self.device.type == "cuda":
             # full-precision fp32 products (no TF32) on the card
@@ -266,6 +271,9 @@ class ServingEngine:
             SchedulerConfig(preemption=ecfg.preemption,
                             prefill_chunk_tokens=ecfg.prefill_chunk_tokens),
             prefill_seconds=self._prefill_seconds)
+        # prefill-role instances hold parked requests for peer handoff
+        # instead of resuming them locally
+        self.scheduler.hold_resumes = self.role == "prefill"
         self.host_kv_peak_pages = 0
         self.streamed_pages_peak = 0
         self.device_pages_peak = 0
@@ -327,10 +335,20 @@ class ServingEngine:
         # the current interval's runtime and placed parameters (see _rt)
         self._runtime: OffloadRuntime | None = None
         self._placed: Any = None
+        self._placements = 0              # placements made so far
         self._prefetch_copies_done = 0    # by runtimes already released
+        # the decode step as a CUDA graph (the reference's jitted step), on
+        # a GPU: ``_capture`` builds one (a test may stand in its own), and
+        # one graph is held at a time, keyed on (interval, pool address,
+        # placement); its inputs sit in one device buffer of int32 views
+        self._capture: Callable | None = (
+            graphs.Graphed if self.device.type == "cuda" else None)
+        self._decode_graph: tuple[tuple, Any] | None = None
+        self._step_inputs: tuple | None = None
+        self.decode_graph_captures = 0
         # stream time of each prefill / incremental chunk / decode step (GPU
         # only): CUDA events around the step, so the gaps while the host
-        # issues work count too
+        # issues work count too (the decode step is one graph launch)
         self.prefill_ms: list[float] = []
         self.chunk_ms: list[float] = []
         self.decode_ms: list[float] = []
@@ -458,6 +476,7 @@ class ServingEngine:
                                 device=self.device)
             self._placed = rt.place(split_model_params(self.params, rt.plan))
             self._runtime = rt
+            self._placements += 1
         return self._runtime, self._placed
 
     def _release_placement(self) -> None:
@@ -467,6 +486,7 @@ class ServingEngine:
         if self._runtime is not None:
             self._prefetch_copies_done += self._runtime.prefetch_copies
         self._runtime = self._placed = None
+        self._decode_graph = None         # it reads the released placement
 
     @property
     def prefetch_copies(self) -> int:
@@ -807,6 +827,218 @@ class ServingEngine:
             return
         self.prefetch_pages_total += self.kv.prefetch_from_disk(req.rid,
                                                                 depth)
+
+    # ------------------------------------------- cross-instance migration --
+    def _host_payload(self, pages: list[int]) -> torch.Tensor:
+        """A copy of host frames ``pages`` in token order (a ticket's
+        payload)."""
+        return self.host_pool.index_select(
+            0, torch.as_tensor(pages, dtype=torch.long))
+
+    def _land_payload(self, pages: list[int], payload: torch.Tensor) -> None:
+        """Write a ticket's payload into freshly claimed host frames."""
+        self._guard_host_writes(pages)
+        for hp, frame in zip(pages, payload):
+            self.host_pool[hp] = frame
+
+    def export_parked_request(self, rid: int) -> tuple[Request,
+                                                       MigrationTicket] | None:
+        """Serialize a parked request for cross-instance preemption: its
+        host frames (payload copy, token order) plus the decode-cursor
+        snapshot the park took — everything a peer instance needs to resume
+        it bitwise-exactly. On success the request leaves this instance's
+        books entirely (scheduler preempted set + allocator frames); the
+        ticket bytes are charged to this instance's clock by the fleet when
+        the transfer is modeled. None (nothing changed) when the request is
+        not an exportable shape — disk-demoted pages, a held COW reserve,
+        or not parked here at all."""
+        pages = self.kv.export_parked(rid)
+        if pages is None:
+            return None
+        req = self.scheduler.take_preempted(rid)
+        if req is None:
+            return None
+        if req.parked_at_s is not None:
+            # close the source-side park stall; the destination opens its
+            # own segment at adoption time
+            req.preempt_stall_s += self.clock_s - req.parked_at_s
+            req.parked_at_s = None
+        assert self.host_pool is not None
+        self._guard_host_writes(pages)
+        ticket = MigrationTicket(
+            rid=rid, n_pages=len(pages), page_bytes=self.kv.page_bytes,
+            payload=self._host_payload(pages),
+            next_token=req.next_token, resume_pos=req.resume_pos)
+        self.kv.free(rid)
+        self.mig_out_bytes_total += ticket.bytes_total
+        self.pending_mig_out_bytes += ticket.bytes_total
+        self.n_migrated_out += 1
+        self.trace.event("migrate_out", rid, self.clock_s,
+                         n_pages=ticket.n_pages)
+        return req, ticket
+
+    def import_parked_request(self, req: Request,
+                              ticket: MigrationTicket) -> bool:
+        """Adopt a request migrated in from a peer: claim private host
+        frames, land the ticket payload, and park it in the scheduler's
+        preempted set — it resumes through the ordinary priority path,
+        token-exactly, from the carried cursor snapshot. False (nothing
+        claimed) when the host tier cannot absorb the set."""
+        assert ticket.page_bytes == self.kv.page_bytes, \
+            "migration between incompatible page geometries"
+        pages = self.kv.import_parked(req.rid, ticket.n_pages)
+        if pages is None:
+            return False
+        assert self.host_pool is not None
+        self._land_payload(pages, ticket.payload)
+        req.state = State.PREEMPTED
+        req.slot = -1
+        req.parked_at_s = self.clock_s
+        self.scheduler.adopt_parked(req)
+        self.mig_in_bytes_total += ticket.bytes_total
+        self.pending_mig_in_bytes += ticket.bytes_total
+        self.n_migrated_in += 1
+        self.trace.event("migrate_in", req.rid, self.clock_s,
+                         n_pages=ticket.n_pages)
+        return True
+
+    # ---------------------------------------------- post-prefill KV handoff --
+    def export_handoff(self, rid: int) -> tuple[Request,
+                                                MigrationTicket] | None:
+        """Serialize a parked post-prefill request for live handoff to a
+        decode instance. Mechanically this is ``export_parked_request`` —
+        same payload snapshot, same bitwise cursor — but the transfer is
+        charged to the PEER tier's own link term instead of a synchronous
+        migration stall: the exported pages drain into this instance's next
+        iteration's ``peer_s`` (overlapping its next prefill), and the
+        importer charges its own side symmetrically after certifying. The
+        payload's bytes move through the data plane's ``peer_export`` when
+        the engine has one."""
+        pages = self.kv.export_parked(rid)
+        if pages is None:
+            return None
+        req = self.scheduler.take_preempted(rid)
+        if req is None:
+            return None
+        if req.parked_at_s is not None:
+            req.preempt_stall_s += self.clock_s - req.parked_at_s
+            req.parked_at_s = None
+        assert self.host_pool is not None
+        if self.data_plane is not None:
+            payload = torch.empty((len(pages), *self.host_pool.shape[1:]),
+                                  dtype=self.host_pool.dtype)
+            self.data_plane.peer_export(pages, payload)
+        else:
+            payload = self._host_payload(pages)
+        ticket = MigrationTicket(
+            rid=rid, n_pages=len(pages), page_bytes=self.kv.page_bytes,
+            payload=payload, next_token=req.next_token,
+            resume_pos=req.resume_pos, kind="handoff")
+        self.kv.free(rid)
+        self.kv.note_peer_export(ticket.n_pages)
+        self.handoff_out_bytes_total += ticket.bytes_total
+        self.n_handoff_out += 1
+        self.trace.event("handoff_out", rid, self.clock_s,
+                         n_pages=ticket.n_pages)
+        return req, ticket
+
+    def import_handoff(self, req: Request, ticket: MigrationTicket) -> bool:
+        """Adopt a handed-off post-prefill request: certify the peer
+        transfer against the live population's tightest TPOT budget (the
+        scheduler's peer-extended feasibility term), claim private host
+        frames, land the payload (through the data plane's
+        ``peer_import`` when there is one), and park the request into the
+        ordinary resume path. False (nothing claimed, exporter must roll
+        back) when the transfer cannot be certified or the host tier
+        cannot absorb the page set."""
+        assert ticket.kind == "handoff", ticket.kind
+        assert ticket.page_bytes == self.kv.page_bytes, \
+            "handoff between incompatible page geometries"
+        active = [ActiveInfo(r, s) for s, r in enumerate(self.slot_req)
+                  if r is not None and self.active[s]]
+        if not self.scheduler.certify_handoff(ticket.n_pages,
+                                              req.tpot_slo_s, active):
+            return False
+        pages = self.kv.import_parked(req.rid, ticket.n_pages)
+        if pages is None:
+            return False
+        assert self.host_pool is not None
+        if self.data_plane is not None:
+            self.data_plane.peer_import(ticket.payload, pages)
+        else:
+            self._land_payload(pages, ticket.payload)
+        req.state = State.PREEMPTED
+        req.slot = -1
+        req.parked_at_s = self.clock_s
+        self.scheduler.adopt_parked(req)
+        self.kv.note_peer_import(ticket.n_pages)
+        self.handoff_in_bytes_total += ticket.bytes_total
+        self.n_handoff_in += 1
+        self.trace.event("handoff_in", req.rid, self.clock_s,
+                         n_pages=ticket.n_pages)
+        return True
+
+    def park_for_handoff(self, rid: int) -> bool:
+        """Prefill-role instances: park a freshly prefilled request so its
+        KV becomes the host-resident, cursor-snapshotted shape a
+        ``MigrationTicket`` exports. Same mechanics (and the same d2h
+        write-back charge) as a scheduler-planned preemption, just forced
+        at the post-prefill boundary instead of under admission pressure.
+        False when the host tier cannot absorb the park — the request then
+        simply keeps its slot and decodes locally (graceful fallback)."""
+        slot = next((s for s, r in enumerate(self.slot_req)
+                     if r is not None and r.rid == rid), None)
+        if slot is None or not self.active[slot]:
+            return False
+        req = self.slot_req[slot]
+        others = [r.rid for s, r in enumerate(self.slot_req)
+                  if r is not None and self.active[s] and r.rid != rid]
+        moves = self.kv.park(rid, others)
+        if moves is None:
+            return False
+        self.swap.note_demotions(len(moves))
+        self.scheduler.stats["preemptions"] += 1
+        self.scheduler.preempted.append(req)
+        if moves and self.kv.park_copy is None:
+            assert self.host_pool is not None
+            ops.copy_pages_to_host(self.pool,
+                                   [m.src_page for m in moves],
+                                   self.host_pool,
+                                   [m.dst_page for m in moves])
+        req.state = State.PREEMPTED
+        req.preempt_count += 1
+        req.parked_at_s = self.clock_s
+        self.trace.event("park", req.rid, self.clock_s, slot=slot)
+        req.next_token = int(self.tokens[slot])
+        req.resume_pos = int(self.pos[slot])
+        req.slot = -1
+        self.active[slot] = False
+        self.slot_req[slot] = None
+        return True
+
+    def rollback_handoff(self, req: Request,
+                         ticket: MigrationTicket) -> None:
+        """Refused handoff: the destination certified nothing and claimed
+        nothing, so the exporter re-adopts the request in place and cancels
+        the export accounting — no peer bytes crossed the link in either
+        direction, and the conservation audit sees a net zero."""
+        pages = self.kv.import_parked(req.rid, ticket.n_pages)
+        assert pages is not None, \
+            "exporter must be able to re-claim the frames it just freed"
+        assert self.host_pool is not None
+        self._land_payload(pages, ticket.payload)
+        req.state = State.PREEMPTED
+        req.slot = -1
+        req.parked_at_s = self.clock_s
+        self.scheduler.adopt_parked(req)
+        assert self.kv.pending_peer_out_pages >= ticket.n_pages, \
+            "rollback after the export already drained into an iteration"
+        self.kv.pending_peer_out_pages -= ticket.n_pages
+        self.kv.peer_out_pages_total -= ticket.n_pages
+        self.handoff_out_bytes_total -= ticket.bytes_total
+        self.n_handoff_out -= 1
+        self.trace.event("handoff_rollback", req.rid, self.clock_s,
+                         n_pages=ticket.n_pages)
 
     def _disk_page_copy(self, src_tier: str, src_page: int,
                         dst_tier: str, dst_page: int) -> None:
@@ -1301,6 +1533,47 @@ class ServingEngine:
             self.pool = ops.copy_pages_on_device(self.pool, dd_src, dd_dst)
         return cow_in, cow_out
 
+    def _load_step_inputs(self, tables: tuple) -> None:
+        """Copy one step's kernel inputs (tokens, pos, block tables,
+        context lengths, write frames and offsets: ``max_batch`` rows each,
+        fixed shapes per engine) into the decode graph's static device
+        buffer, through one pinned staging buffer and one upload."""
+        if self._step_inputs is None:
+            b, nb = self.ecfg.max_batch, self.nb
+            n = 5 * b + b * nb
+            host = torch.zeros(n, dtype=torch.int32,
+                               pin_memory=self.device.type == "cuda")
+            buf = torch.zeros(n, dtype=torch.int32, device=self.device)
+            views = (buf[:b], buf[b:2 * b], buf[2 * b:2 * b + b * nb]
+                     .view(b, nb), *(buf[(2 + nb + k) * b:(3 + nb + k) * b]
+                                     for k in range(3)))
+            self._step_inputs = (host, buf, views)
+        host, buf, _ = self._step_inputs
+        # the previous upload from ``host`` finished: each step reads its
+        # logits back before the next one starts
+        np.concatenate([np.asarray(a, np.int32).ravel() for a in tables],
+                       out=host.numpy())
+        buf.copy_(host, non_blocking=True)
+
+    def _decode_step_graph(self, rt: OffloadRuntime, params: Any):
+        """The decode step captured for the current interval, page pool
+        and placement, captured anew when any of them changed (each
+        capture counted in ``decode_graph_captures``). Host KV streaming,
+        promotions, COW copies and the write-back stay outside the graph,
+        on the same stream, ahead of or after the replay."""
+        key = (self.interval, self.pool.data_ptr(), self._placements)
+        if self._decode_graph is None or self._decode_graph[0] != key:
+            self._decode_graph = None
+            tokens, pos, bt, cl, wf, wo = self._step_inputs[2]
+            counters = ([(rt._stream, "copies")] if rt._stream is not None
+                        else [])
+            graph = self._capture(
+                functools.partial(rt.paged_decode_step, params),
+                (tokens, pos, self.pool, bt, cl, wf, wo), counters)
+            self._decode_graph = (key, graph)
+            self.decode_graph_captures += 1
+        return self._decode_graph[1]
+
     def step(self, peers: list["ServingEngine"] | None = None,
              link_bw: float | None = None) -> None:
         """One inference iteration: coordinate -> plan -> apply (preempt /
@@ -1361,6 +1634,19 @@ class ServingEngine:
                                      self.kv.device.used_pages)
         self.disk_kv_peak_pages = max(self.disk_kv_peak_pages,
                                       self.kv.disk.used_pages)
+        if self.role == "prefill" and self.scheduler.hold_resumes:
+            # disaggregated prefill instance: every freshly prefilled
+            # request parks here BEFORE any decode runs — its first token
+            # (TTFT) was charged by the prefill; decode belongs to the
+            # peer the fleet hands it to at the next boundary. Gated on
+            # hold_resumes: once the fleet's drained-flush releases the
+            # staging set (no peer ever certified), resumed requests must
+            # decode here instead of bouncing resume -> re-park forever
+            for slot in range(self.ecfg.max_batch):
+                req = self.slot_req[slot]
+                if (req is not None and self.active[slot]
+                        and req.state is State.DECODING):
+                    self.park_for_handoff(req.rid)
         chunk_s, finals = self._run_chunks(plan.chunks)
         if self._active_batch() == 0:
             # no decode this iteration; chunk compute still advances the
@@ -1451,10 +1737,17 @@ class ServingEngine:
             self.pool = ops.copy_pages_from_host(self.host_pool, stream_src,
                                                  self.pool, stream_dst)
         tokens_in, pos_in = self.tokens.copy(), self.pos.copy()
-        dev = lambda a: torch.as_tensor(a, device=self.device)
-        logits, self.pool = self._device_call(
-            self.decode_ms, rt.paged_decode_step, params, dev(tokens_in),
-            dev(pos_in), self.pool, dev(bt), dev(cl), dev(wf), dev(wo))
+        tables = (tokens_in, pos_in, bt, cl, wf, wo)
+        if self._capture is None:
+            dev = lambda a: torch.as_tensor(a, device=self.device)
+            args = [dev(a) for a in tables]
+            logits, self.pool = self._device_call(
+                self.decode_ms, rt.paged_decode_step, params, *args[:2],
+                self.pool, *args[2:])
+        else:
+            self._load_step_inputs(tables)
+            logits, _ = self._device_call(
+                self.decode_ms, self._decode_step_graph(rt, params).replay)
         logits = logits.float().cpu().numpy()
         if writeback:
             self._guard_host_writes([hs for hs, _ in writeback])

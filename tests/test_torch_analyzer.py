@@ -377,6 +377,46 @@ def test_measured_engine_serves_on_cpu(monkeypatch):
     assert eng.trace.audit().ok
 
 
+def test_measured_engine_fits_the_rest_term_apart(monkeypatch):
+    """``fit_rest`` makes the model-mode rest term give the measured rest,
+    and a clock with it fitted apart keeps every other term of the
+    preset's."""
+    cfg, ecfg = _small_config()
+    hw = dataclasses.replace(H100_CALIBRATED, compute_eff=0.3, mem_eff=0.02)
+    eff = P.fit_rest(cfg, 2e-4)
+    fitted = P.calibrated_clock(cfg, hw, eff, "cpu")
+    preset = P.calibrated_clock(cfg, hw, None, "cpu")
+    rest_model = A.PerformanceAnalyzer(
+        cfg, dataclasses.replace(hw, mem_eff=eff), measure="model")
+    for b, s, ph in ((8, 64, "decode"), (1, 32, "prefill")):
+        got, want = fitted(b, s, ph), preset(b, s, ph)
+        assert got.t_rest_s == rest_model.measure_times(b, s, ph).t_rest_s
+        assert dataclasses.replace(got, t_rest_s=want.t_rest_s) == want
+    # at decode the rest is the LM head's bytes over the fitted bandwidth
+    assert fitted(8, 64, "decode").t_rest_s == pytest.approx(2e-4)
+    monkeypatch.setattr(A, "_time_fn", _stub([]))
+    records, _ = P.measured_records(cfg, ecfg, hw, device="cpu")
+    monkeypatch.setattr(P, "smoke_config", lambda: (cfg, ecfg))
+    eng = P.measured_engine(records, hw, "cpu", rest_mem_eff=eff)
+    assert eng.times_fn(4, 64, "decode") == fitted(4, 64, "decode")
+
+
+def test_measure_rest_times_the_lm_head(monkeypatch):
+    """``measure_rest`` times the final norm and the LM head over one
+    decode row per batch entry, through the analyzer's ``_time_fn``."""
+    _, cfg = _cfgs()
+    an = A.PerformanceAnalyzer(cfg, H100_CALIBRATED, device="cpu")
+    seen = []
+
+    def fake(fn, *args, **kwargs):
+        seen.append(fn(*args))
+        return 3e-4
+
+    monkeypatch.setattr(P, "_time_fn", fake)
+    assert P.measure_rest(an, 8) == 3e-4
+    assert seen[0].shape == (8, 1, cfg.padded_vocab())
+
+
 def test_baseline_intervals_follow_the_reference_baselines():
     _, cfg = _cfgs()
     times = LayerTimes(2e-3, 5e-3, LAYERS, 70080, t_rest_s=2e-4)

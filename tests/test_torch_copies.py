@@ -19,7 +19,7 @@ VERBATIM = sorted(
        "core/coordinator.py", "core/baselines.py", "core/simulator.py",
        "serving/kv_cache.py", "serving/request.py",
        "serving/scheduler.py", "serving/autotune.py",
-       "serving/telemetry.py", "data/workload.py"])
+       "serving/telemetry.py", "serving/fleet.py", "data/workload.py"])
 
 # module -> (reason, lines only the reference has, marker of added lines)
 EDITED = {

@@ -437,3 +437,88 @@ def test_host_write_guard_waits_for_a_blocked_worker():
     assert float(plane.disk_pool[2][0]) == 4.0 * _SCALE[0]
     assert float(plane.host_pool[1][0]) == 99.0
     assert plane.inflight_pages() == 0 and plane.background_copy_s > 0
+
+
+@pytest.mark.parametrize("backing", ["ram", "file"])
+def test_worker_copy_routine_is_bitwise(backing, tmp_path):
+    """The worker's host->disk routine (one ``numpy.copyto`` of each page's
+    bits) writes exactly the bits the index-copy routine it replaced
+    writes: random bf16 patterns including NaN, infinities and negative
+    zero, into a RAM pool and into a file-backed one (the engine's
+    ``torch.from_file`` mapping)."""
+    rng = np.random.default_rng(5)
+    shape = (6, 16, 3, 2, 8)
+    bits = rng.integers(0, 2**16, (6, int(np.prod(shape[1:]))),
+                        dtype=np.uint16)
+    bits[0, :4] = [0x7FC0, 0x7F80, 0xFF80, 0x8000]     # NaN, +inf, -inf, -0
+    host = torch.from_numpy(bits.view(np.int16).reshape(shape)).view(
+        torch.bfloat16)
+    if backing == "file":
+        path = tmp_path / "disk.bin"
+        n = 5 * int(np.prod(shape[1:]))
+        with open(path, "wb") as f:
+            f.truncate(2 * n)
+        disk = torch.from_file(str(path), shared=True, size=n,
+                               dtype=torch.bfloat16).view(5, *shape[1:])
+    else:
+        disk = torch.zeros((5, *shape[1:]), dtype=torch.bfloat16)
+    want = disk.clone()
+    srcs, dsts = [0, 4, 2], [3, 0, 4]
+    want.index_copy_(0, torch.as_tensor(dsts), host.index_select(
+        0, torch.as_tensor(srcs)))
+    plane = port_dp.CopyStageEngine(host_pool=host, disk_pool=disk,
+                                    get_pool=lambda: None,
+                                    set_pool=lambda p: None)
+    plane._host_to_disk(srcs, dsts)
+    assert torch.equal(disk.view(torch.int16), want.view(torch.int16))
+    if backing == "file":
+        raw = np.fromfile(path, dtype=np.uint16).reshape(5, -1)
+        for s, d in zip(srcs, dsts):
+            np.testing.assert_array_equal(raw[d], bits[s])
+
+
+@pytest.mark.parametrize("async_mode", [False, True])
+def test_worker_starts_with_an_async_plane_and_empty_drains_cost_nothing(
+        async_mode):
+    """An async plane starts its worker when it is built, so no drain pays
+    for the start; a drain with nothing queued and nothing in flight adds
+    no blocking time. A sync plane starts no thread."""
+    plane, _ = _bare_plane("port", _rows(np.arange(4) + 3),
+                           np.zeros((4, _W), np.float32),
+                           np.zeros((2, _W), np.float32),
+                           async_mode=async_mode)
+    assert (plane._worker is not None) == async_mode
+    if async_mode:
+        assert plane._worker.is_alive()
+    for _ in range(5):
+        plane.drain()
+    assert plane.blocking_copy_s == 0.0
+
+
+def test_retirement_a_later_op_touches_runs_inline():
+    """A host->disk retirement whose host frame a later op of the same
+    drain overwrites (the park's transit-frame reuse) runs inline instead
+    of on the worker, which the later op would wait for at once; one that
+    no later op touches still goes to the worker. The pools end as the
+    reference's plane leaves them, bit for bit."""
+    host0 = _rows(np.arange(4) + 3)
+    dev0 = _rows(np.arange(2) + 40)
+    got = {}
+    for fw in FRAMEWORKS:
+        plane, box = _bare_plane(fw, host0.copy(),
+                                 np.zeros((4, _W), np.float32), dev0.copy(),
+                                 async_mode=True)
+        submitted = []
+        submit = plane._submit_bg
+        plane._submit_bg = lambda s, d: submitted.append(s) or submit(s, d)
+        plane.stage("h2disk", 1, 0)       # frame 1 is overwritten below
+        plane.stage("d2h", 0, 1)
+        plane.stage("h2disk", 2, 3)       # nothing later touches frame 2
+        plane.drain()
+        plane.sync()
+        if fw == "port":
+            assert submitted == [[2]]
+        got[fw] = [_np(plane.host_pool), _np(plane.disk_pool)]
+    for a, b in zip(got["ref"], got["port"]):
+        np.testing.assert_array_equal(b, a)
+    np.testing.assert_array_equal(got["port"][1][0], host0[1])

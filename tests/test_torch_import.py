@@ -78,3 +78,33 @@ def test_engine_config_fields_equal_reference():
         return [(f.name, f.type, f.default) for f in dataclasses.fields(cls)]
 
     assert sig(Port) == sig(Ref)
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Every entry point computes on the card unless the caller asks for
+    the CPU."""
+    import inspect
+
+    from repro_torch.core import analyzer
+    from repro_torch.core.memory_manager import OffloadRuntime
+    from repro_torch.launch import profile_engine, serve
+    from repro_torch.serving.engine import ServingEngine
+
+    for fn in (OffloadRuntime.__init__, ServingEngine.__init__,
+               analyzer.PerformanceAnalyzer.__init__,
+               analyzer.determinism_check, serve.build_engine,
+               profile_engine.smoke_engine, profile_engine.disk_engine,
+               profile_engine.measured_engine,
+               profile_engine.calibrated_clock):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", \
+            fn.__qualname__
+
+    class Built(Exception):
+        pass
+
+    def build(*args, device, **kwargs):
+        raise Built(device)
+
+    monkeypatch.setattr(serve, "build_engine", build)
+    with pytest.raises(Built, match="^cuda$"):
+        serve.main([])

@@ -1,7 +1,7 @@
 """The port's serve CLI on the CPU: same summary keys as the reference,
 the paged decode path, incremental chunked prefill, the disk KV tier and
-the async copy-stage data plane, and the flags of paths not ported yet
-refused."""
+the async copy-stage data plane, the fleet, peer and disaggregated runs,
+and the flag combinations the reference refuses refused."""
 from __future__ import annotations
 
 import pytest
@@ -43,14 +43,49 @@ def test_metrics_out_audits_clean(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--fleet", "2"], ["--peer"], ["--disagg"], ["--prefill-instances", "2"],
-    ["--router", "round_robin"],
+    ["--fleet", "2", "--peer"], ["--peer", "--autotune"], ["--disagg"],
+    ["--disagg", "--host-kv-gb", "0.0001", "--prefill-instances", "0"],
+    ["--fleet", "2", "--router", "round_robin", "--autotune"],
 ])
 def test_unported_flags_refused(flag, capsys):
-    with pytest.raises(SystemExit) as exc:
-        serve.main(ARGS + flag)
-    assert exc.value.code == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    """The fleet, peer and disaggregated flags are ported; what the
+    reference's serve refuses of them, the port refuses the same way."""
+    pytest.importorskip("jax")
+    from repro.launch import serve as ref_serve
+
+    errs = []
+    for main, argv in ((serve.main, ARGS + flag), (ref_serve.main,
+                                                   ARGS[2:] + flag)):
+        with pytest.raises(SystemExit) as exc:
+            main(argv)
+        assert exc.value.code == 2
+        errs.append(capsys.readouterr().err.splitlines()[-1])
+    assert errs[0] == errs[1]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--fleet", "2"], ["--fleet", "2", "--router", "round_robin"],
+    ["--disagg", "--host-kv-gb", "0.0001"], ["--peer"],
+])
+def test_fleet_cli_matches_reference(flags, capsys):
+    """The fleet, disaggregated and peer runs: the same summary keys and
+    the same policy outcomes as the reference's serve, audits clean."""
+    pytest.importorskip("jax")
+    from repro.launch import serve as ref_serve
+
+    got = _summary(serve.main, ARGS + flags, capsys)
+    want = _summary(ref_serve.main, ARGS[2:] + flags, capsys)
+    assert sorted(got) == sorted(want)
+    keys = ("finished", "rejected", "tokens", "wall_modeled_s",
+            "link_bytes", "migrations", "handoffs", "reroutes",
+            "per_instance", "audit")
+    for key in keys:
+        assert got.get(key) == want.get(key), key
+    assert got["finished"] == 4
+    if "audit" in got:
+        assert got["audit"]["ok"]
+    if "--disagg" in flags:
+        assert got["handoffs"] > 0
 
 
 DISK = ["--host-kv-gb", "0.0001", "--disk-kv-gb", "0.0001", "--preemption"]
@@ -173,15 +208,22 @@ def test_profile_trace_summary_paged_chunk_share():
 
 @pytest.mark.parametrize("field,value", [("role", "prefill")])
 def test_engine_refuses_unported_settings(field, value):
+    """The fleet roles are ported: a prefill-role engine builds and holds
+    its parked requests for handoff; a role the fleet does not know is
+    refused, as in the reference."""
     from repro_torch.configs import get_config
     from repro_torch.configs.reduced import reduce_config
     from repro_torch.core.hardware import A10
     from repro_torch.serving.engine import EngineConfig
 
-    ecfg = EngineConfig(max_batch=2, max_seq=32, **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.build_engine("x", reduce_config(get_config("qwen2.5-3b")), A10,
-                           ecfg, [0.01], device="cpu")
+    cfg = reduce_config(get_config("qwen2.5-3b"))
+    eng = serve.build_engine("x", cfg, A10, EngineConfig(
+        max_batch=2, max_seq=32, **{field: value}), [0.01], device="cpu")
+    assert eng.role == value and eng.scheduler.hold_resumes
+    with pytest.raises(ValueError, match="role"):
+        serve.build_engine("y", cfg, A10, EngineConfig(
+            max_batch=2, max_seq=32, **{field: "bogus"}), [0.01],
+            device="cpu")
 
 
 @pytest.mark.parametrize("async_plane", [False, True])
