@@ -29,11 +29,15 @@ Chrome trace is written under ``--out``. Needs a GPU.
 The module also holds what ``chip_smoke.py``'s measured phases call:
 ``calibrate`` (the per-unit times, the host link and the LM-head rest
 measured on the card, and the ``H100_CALIBRATED`` values fitted from them),
+``placement_link`` (the measured engine's own placement, and the host link
+fitted from the slowest of several walks of the ring's copies out of it),
 ``measured_records`` (the analyzer's wall-clock records on the card),
 ``measured_engine`` (the smoke configuration served against them, its
-clock ``calibrated_clock``),
+clock ``calibrated_clock``, streaming from that placement),
 ``baseline_intervals`` / ``policy_decode`` (the paper's Select-N vs
-DeepSpeed vs FlexGen comparison, run on the card).
+DeepSpeed vs FlexGen comparison, run on the card), and ``moe_engine``
+(the MoE decoder, dbrx-132b at full width and 4 layers, on the link of
+its own placement).
 """
 from __future__ import annotations
 
@@ -64,16 +68,17 @@ from repro_torch.core.graphs import Graphed
 from repro_torch.core.hardware import H100, PRESETS, HardwareModel
 from repro_torch.core.interval import (NO_OFFLOAD, LayerTimes, OffloadPlan,
                                        iter_time_with_interval_kv)
-from repro_torch.core.memory_manager import (OffloadRuntime,
-                                             split_model_params)
+from repro_torch.core.memory_manager import OffloadRuntime
 from repro_torch.core.record import PerformanceRecord
 from repro_torch.core.slo import SLO_GRANULARITY_S
 from repro_torch.launch.serve import build_engine, record_buckets
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.model import build_model
+from repro_torch.models.spec import tree_leaves, tree_map
 from repro_torch.models.transformer import pattern_info
-from repro_torch.serving.engine import EngineConfig, ServingEngine
+from repro_torch.serving.engine import (EngineConfig, ServingEngine,
+                                       place_weights)
 from repro_torch.serving.request import Request, State
 
 PROMPT_LENS = (512, 300, 128, 64, 480, 200, 33, 17)
@@ -131,6 +136,57 @@ def smoke_requests(vocab: int, max_new_tokens: int, rng: np.random.Generator,
                     max_new_tokens=max_new_tokens, ttft_slo_s=2.0,
                     tpot_slo_s=tpot_slo_s)
             for i, n in enumerate(prompt_lens)]
+
+
+# The MoE decoder: dbrx-132b at full width (d_model 6144, 48 heads over 8
+# KV heads, head_dim 128, d_ff 10752, 16 experts top-4, vocab 100352,
+# capacity factor 1.25), its depth reduced from 40 layers to MOE_LAYERS.
+# The engine keeps a host master copy of every weight and pins each
+# offloaded unit: one layer is 6.52 GB in bf16 (experts 6.34 GB), so 40
+# layers would need 261 GB of host memory; 4 layers hold 26.1 GB of blocks,
+# 2.47 GB of untied embedding and LM head, and one 6.52 GB pinned unit.
+MOE_ARCH = "dbrx-132b"
+MOE_LAYERS = 4
+
+
+def moe_config(layers: int = MOE_LAYERS
+               ) -> tuple[ModelConfig, EngineConfig, int]:
+    """The MoE engine's model, configuration and interval: dbrx-132b at
+    full width and ``layers`` layers (reduced: host memory), ``max_batch``
+    8, ``max_seq`` 1024, page 16, a 128-page host KV tier, held at the
+    interval of one group (the depth in units: one unit streams), with HBM
+    for that interval's resident units and the weight ring's two slots plus
+    40 KV pages. The ring's two slots make every offloading interval but 1
+    cost as much device memory as keeping all four units at 4 layers, so no
+    memory ceiling forces the interval: the engine holds it, as
+    ``disk_engine`` holds its own."""
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=layers)
+    _, units = pattern_info(cfg)
+    page_bytes = PAGE_SIZE * costs.kv_cache_bytes(cfg, 1, 1)
+    ecfg = EngineConfig(
+        max_batch=8, max_seq=MAX_SEQ, page_size=PAGE_SIZE,
+        hbm_budget_bytes=OffloadPlan(units, units).device_bytes(
+            costs.unit_weight_bytes(cfg)) + 40 * page_bytes,
+        host_kv_bytes=128 * page_bytes)
+    return cfg, ecfg, units
+
+
+def moe_engine(cfg: ModelConfig, ecfg: EngineConfig, placement: dict,
+               device: str = "cuda") -> ServingEngine:
+    """The MoE engine (``moe_config``) serving the weights of ``placement``
+    (``placement_link`` at the configuration's interval) from that
+    placement, its records on ``SLO_GRID`` and its clock (model mode) the
+    datasheet ``h100`` preset with the host link fitted from the
+    placement's slowest ring walk, so both model the buffers it streams
+    from. Serve it at ``measured_tpot_slo(..., interval=)`` at its
+    interval, the smallest SLO at which the decode record makes that
+    interval the smallest feasible one (a keeping-up tuner's choice)."""
+    hw = dataclasses.replace(
+        PRESETS["h100"], host_link_bw=placement["link"]["host_link_bw"])
+    eng = build_engine("moe", cfg, hw, ecfg, SLO_GRID, device=device,
+                       params=placement["params"])
+    eng.adopt_placement(placement["runtime"], placement["placed"])
+    return eng
 
 
 # the disk-pressure trace (tests/differential/test_async_data_plane.py's
@@ -394,6 +450,86 @@ def calibrate(cfg: ModelConfig) -> dict:
                                       decode["mean_s"], link)}
 
 
+# walks of the ring's copies the placement's link is fitted from
+LINK_WALKS = 10
+
+
+def engine_weights(cfg: ModelConfig, device: str = "cuda") -> dict:
+    """The weights an engine of ``cfg`` draws by default (``torch.Generator``
+    seed 0 on ``device``), as the host master copy it keeps."""
+    gen = torch.Generator(device).manual_seed(0)
+    return tree_map(lambda t: t.cpu(), build_model(cfg).init(gen, device))
+
+
+def memory_interval(cfg: ModelConfig, ecfg: EngineConfig) -> int:
+    """The largest interval ``ecfg``'s HBM budget holds: the one the
+    measured engine's decode record gives its largest bucket at the SLO it
+    certifies."""
+    _, units = pattern_info(cfg)
+    return max_interval_for_memory(units, costs.unit_weight_bytes(cfg),
+                                   ecfg.hbm_budget_bytes)
+
+
+def ring_walks(rt: OffloadRuntime, walks: int = LINK_WALKS) -> dict:
+    """``walks`` walks over every group, each group's offloaded unit copied
+    out of ``rt``'s pinned stack as the weight ring copies it (one copy
+    per leaf on the ring's side stream, into the slot of the group), after
+    one warm-up walk; CUDA events around each walk. Returns the unit's
+    bytes, each walk's seconds per unit and the stack's host addresses
+    (the copies are not counted as prefetches)."""
+    ws = rt._stream
+    groups = rt.plan.num_groups
+    unit_bytes = sum(t[0].numel() * t[0].element_size()
+                     for t in tree_leaves(ws.host))
+    per_unit = []
+    torch.cuda.synchronize()
+    with torch.cuda.stream(ws.stream):
+        for _ in range(walks + 1):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for g in range(groups):
+                tree_map(lambda d, h: d.copy_(h[g], non_blocking=True),
+                         ws.slots[g % 2], ws.host)
+            end.record()
+            end.synchronize()
+            per_unit.append(start.elapsed_time(end) / 1e3 / groups)
+    return {"unit_bytes": unit_bytes, "groups": groups,
+            "unit_copy_s": per_unit[1:],
+            "host_ptrs": [t.data_ptr() for t in tree_leaves(ws.host)]}
+
+
+def fit_placement_link(walks: dict, latency_s: float) -> dict:
+    """The host link of the slowest walk (``ring_walks``): the bandwidth
+    with which ``latency_s`` plus one unit's bytes over it is that walk's
+    copy time per unit, beside the rates of the slowest and the median
+    walk."""
+    slowest = max(walks["unit_copy_s"])
+    nbytes = walks["unit_bytes"]
+    return {"host_link_bw": nbytes / (slowest - latency_s),
+            "host_link_latency_s": latency_s,
+            "slowest_gb_s": nbytes / slowest / 1e9,
+            "median_gb_s": nbytes / float(np.median(walks["unit_copy_s"]))
+            / 1e9}
+
+
+def placement_link(cfg: ModelConfig, interval: int, latency_s: float,
+                   device: str = "cuda") -> dict:
+    """An engine's weights (``engine_weights``) placed at ``interval`` as
+    the engine places them (``place_weights``), and the link fitted from
+    ``LINK_WALKS`` walks of the ring's copies out of that placement's
+    pinned stack (``fit_placement_link``): an engine that adopts the
+    placement and models this link streams from the very buffers it was
+    calibrated on, at their slowest."""
+    params = engine_weights(cfg, device)
+    _, units = pattern_info(cfg)
+    rt, placed = place_weights(build_model(cfg), params,
+                               OffloadPlan(units, interval), device)
+    walks = ring_walks(rt)
+    return {"params": params, "runtime": rt, "placed": placed,
+            "walks": walks, "link": fit_placement_link(walks, latency_s)}
+
+
 def measured_records(cfg: ModelConfig, ecfg: EngineConfig,
                      hw: HardwareModel, device: str = "cuda"
                      ) -> tuple[dict[str, PerformanceRecord],
@@ -411,7 +547,8 @@ def measured_records(cfg: ModelConfig, ecfg: EngineConfig,
 
 def measured_tpot_slo(rec_decode: PerformanceRecord, times_fn,
                       cfg: ModelConfig, ecfg: EngineConfig, batch: int = 8,
-                      seq: int = MAX_SEQ) -> float:
+                      seq: int = MAX_SEQ, interval: int | None = None
+                      ) -> float:
     """The smallest SLO of the grid that an engine of ``ecfg`` serving
     against ``rec_decode`` and modeling its clock with ``times_fn`` can
     certify for ``batch`` rows at ``seq``: the record must have an interval
@@ -421,10 +558,9 @@ def measured_tpot_slo(rec_decode: PerformanceRecord, times_fn,
     interval, with the whole host KV tier streaming, must fit (else the
     scheduler's own TPOT check holds the requests back). The budget must
     force offloading: the record's ``NO_OFFLOAD`` also marks an SLO that no
-    interval meets."""
-    _, units = pattern_info(cfg)
-    max_i = max_interval_for_memory(units, costs.unit_weight_bytes(cfg),
-                                    ecfg.hbm_budget_bytes)
+    interval meets. ``interval``: an engine held at that interval instead
+    of the budget's ceiling."""
+    max_i = interval or memory_interval(cfg, ecfg)
     if max_i >= NO_OFFLOAD:
         raise ValueError("the HBM budget holds every unit: no interval "
                          "ceiling to size the SLO against")
@@ -441,21 +577,26 @@ def measured_tpot_slo(rec_decode: PerformanceRecord, times_fn,
 
 
 def measured_engine(records: dict[str, PerformanceRecord],
-                    hw: HardwareModel, device: str = "cuda", *,
+                    hw: HardwareModel, placement: dict,
+                    device: str = "cuda", *,
                     rest_mem_eff: float | None = None) -> ServingEngine:
     """``smoke_engine``'s configuration, admitting and choosing intervals
-    from ``records`` measured on the card (``measured_records``). Its
-    modeled clock (``times_fn``) is ``hw`` in model mode, the calibrated
-    preset fitted in the same run as the records, with the rest term
-    fitted apart when ``rest_mem_eff`` is given (``calibrated_clock``): the
-    engine calls ``times_fn`` inside every iteration, and in wall-clock
+    from ``records`` measured on the card (``measured_records``) and
+    serving the weights of ``placement`` (``placement_link`` at
+    ``memory_interval``) from that placement, whose link ``hw`` was fitted
+    to. Its modeled clock (``times_fn``) is ``hw`` in model mode, the
+    calibrated preset fitted in the same run as the records, with the rest
+    term fitted apart when ``rest_mem_eff`` is given (``calibrated_clock``):
+    the engine calls ``times_fn`` inside every iteration, and in wall-clock
     mode each call would time a unit on the card in the middle of serving;
     the reference, too, measures only in its offline stage."""
     cfg, ecfg = smoke_config()
-    return ServingEngine("measured", build_model(cfg), hw,
-                         records["prefill"], records["decode"],
-                         calibrated_clock(cfg, hw, rest_mem_eff, device),
-                         ecfg, device=device)
+    eng = ServingEngine("measured", build_model(cfg), hw,
+                        records["prefill"], records["decode"],
+                        calibrated_clock(cfg, hw, rest_mem_eff, device),
+                        ecfg, device=device, params=placement["params"])
+    eng.adopt_placement(placement["runtime"], placement["placed"])
+    return eng
 
 
 def baseline_intervals(cfg: ModelConfig, rec_decode: PerformanceRecord,
@@ -489,8 +630,7 @@ def policy_decode(cfg: ModelConfig, params: dict, interval: int, *,
     model = build_model(cfg)
     _, units = pattern_info(cfg)
     plan = OffloadPlan(units, interval)
-    rt = OffloadRuntime(model, plan, device)
-    placed = rt.place(split_model_params(params, plan))
+    rt, placed = place_weights(model, params, plan, device)
     d = paged_decode_inputs(decode_pool(cfg, model.virtual_kv, batch, seq,
                                         device), batch, seq)
     tokens = torch.zeros((batch,), dtype=torch.int32, device=device)

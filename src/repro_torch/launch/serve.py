@@ -7,7 +7,9 @@ offloading (port of ``repro.launch.serve``).
 Builds the offline performance record (the analyzer's two-stage step 1),
 starts an engine on ``--device`` (default cuda), replays a synthetic
 request stream, and reports SLO attainment + throughput with the
-reference's summary keys. ``--hw h100_calibrated`` models the clock with
+reference's summary keys. ``--arch`` names any attention decoder, with a
+dense or a MoE MLP (``dbrx-132b``, ``grok-1-314b``), served at its reduced
+width as in the reference. ``--hw h100_calibrated`` models the clock with
 the H100 preset fitted from measurements on the card (``core/hardware.py``;
 ``--hw h100`` is the datasheet). ``--prefill-chunk-tokens N
 --incremental-prefill`` serves long prompts in chunks through the paged

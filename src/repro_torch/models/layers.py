@@ -1,8 +1,10 @@
-"""Layer library, attention-only subset (port of ``repro.models.layers``).
+"""Layer library: attention, dense MLP and MoE (port of
+``repro.models.layers``).
 
 Pure functions on tensors; parameters are dicts of tensors described by
 TensorSpec trees (see spec.py), in the reference's layouts (``wq [d,h,hd]``,
-``wo [h,hd,d]``). MoE, Mamba and xLSTM are not ported yet (ROADMAP).
+``wo [h,hd,d]``, experts ``w1 [e,d,f]``). Mamba and xLSTM are not ported
+yet (ROADMAP).
 """
 from __future__ import annotations
 
@@ -202,8 +204,6 @@ def mlp_spec(cfg: ModelConfig) -> Params:
 
 
 def moe_spec(cfg: ModelConfig) -> Params:
-    """MoE parameter spec (byte accounting only: ``apply_moe`` is not
-    ported yet, ROADMAP Queue A item 9)."""
     assert cfg.moe is not None
     d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
     spec = {
@@ -223,3 +223,101 @@ def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.gated_mlp:
         h = h * torch.einsum("bsd,df->bsf", x, p["w3"])
     return torch.einsum("bsf,fd->bsd", h, p["w2"])
+
+
+# ---------------------------------------------------------------------------
+# MoE (token-choice top-k, per-row capacity dispatch)
+# ---------------------------------------------------------------------------
+
+
+def moe_capacity(cfg: ModelConfig, seq: int) -> int:
+    m = cfg.moe
+    assert m is not None
+    return max(1, int(math.ceil(seq * m.top_k / m.num_experts * m.capacity_factor)))
+
+
+def route(cfg: ModelConfig, p: Params, x: torch.Tensor):
+    """The router of ``apply_moe``: the fp32 softmax over experts [B, S, E]
+    of ``x`` [B, S, D] times ``p["router"]`` [D, E] (products of the
+    inputs exact in fp32), and each token's top k [B, S, k] probabilities
+    and expert ids in descending probability, the lower id first on ties
+    (``lax.top_k``'s order, from a stable sort)."""
+    probs = torch.softmax(
+        torch.einsum("bsd,de->bse", x.float(), p["router"].float()), dim=-1)
+    sorted_p, sorted_i = torch.sort(probs, dim=-1, descending=True,
+                                    stable=True)
+    k = cfg.moe.top_k
+    return probs, sorted_p[..., :k], sorted_i[..., :k]
+
+
+def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor):
+    """x: [B, S, D]. Dispatch is per batch row, with the reference's
+    semantics: fp32 router softmax, top-k in descending probability with
+    the lower expert id first on ties, weights renormalised (1e-9 floor),
+    each expert taking its first ``cap`` tokens in (token, choice) order
+    and dropping the rest. Every expert computes its ``cap`` slots (at
+    decode, cap 1: all experts, mostly against zero rows). A token's k
+    contributions are added to a zero row in increasing expert id, in the
+    activation dtype, the order of the reference's sorted scatter-add; no
+    atomics, so the result does not depend on the launch.
+
+    Returns (y, aux_loss)."""
+    m = cfg.moe
+    assert m is not None
+    b, s, d = x.shape
+    e, k = m.num_experts, m.top_k
+    cap = moe_capacity(cfg, s)
+
+    probs, top_p, top_i = route(cfg, p, x)                # [B,S,E], [B,S,k]
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+
+    # load-balancing aux loss (Switch-style), per batch row then averaged
+    me = probs.mean(dim=1)                                        # [B,E]
+    ce = F.one_hot(top_i[..., 0], e).float().mean(dim=1)
+    aux = (me * ce).sum(-1).mean() * e
+
+    # dispatch: a stable sort of the (token, choice) entries by expert; an
+    # entry's place among its expert's entries decides whether it fits
+    flat_e = top_i.reshape(b, s * k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    sorted_e = torch.gather(flat_e, 1, order)
+    seg_start = torch.searchsorted(
+        sorted_e, torch.arange(e, device=x.device).expand(b, e).contiguous())
+    seg_end = torch.cat([seg_start[:, 1:], torch.full(
+        (b, 1), s * k, dtype=seg_start.dtype, device=x.device)], dim=1)
+    # expert slot (e, c) holds the entry at seg_start[e] + c, if any
+    slot = seg_start[:, :, None] + torch.arange(cap, device=x.device)
+    filled = slot < seg_end[:, :, None]                           # [B,E,cap]
+    src_tok = torch.gather(order, 1, slot.clamp(max=s * k - 1)
+                           .reshape(b, e * cap)) // k
+    xe = torch.gather(x, 1, src_tok[..., None].expand(b, e * cap, d))
+    xe = torch.where(filled.reshape(b, e * cap, 1), xe,
+                     torch.zeros((), dtype=x.dtype, device=x.device))
+    xe = xe.reshape(b, e, cap, d).transpose(0, 1).reshape(e, b * cap, d)
+
+    act = _ACTS[cfg.act]
+    h = act(torch.bmm(xe, p["w1"]))
+    if cfg.gated_mlp:
+        h = h * torch.bmm(xe, p["w3"])
+    ye = torch.bmm(h, p["w2"]).reshape(e, b, cap, d).transpose(0, 1)
+
+    # combine: each entry's place in its expert (from the sorted order
+    # back to (token, choice)), its expert slot or the zero trash row
+    rank = torch.arange(s * k, device=x.device) - torch.gather(
+        seg_start, 1, sorted_e)
+    pos = torch.empty_like(rank).scatter_(1, order, rank).reshape(b, s, k)
+    keep = pos < cap
+    dest = torch.where(keep, top_i * cap + pos, e * cap)
+    yflat = torch.cat([ye.reshape(b, e * cap, d),
+                       torch.zeros((b, 1, d), dtype=ye.dtype,
+                                   device=x.device)], dim=1)
+    w = (top_p * keep.to(top_p.dtype)).to(ye.dtype)
+    contrib = torch.gather(yflat, 1, dest.reshape(b, s * k, 1)
+                           .expand(b, s * k, d)).reshape(b, s, k, d)
+    contrib = contrib * w[..., None]
+    by_id = torch.argsort(top_i, dim=-1)                          # [B,S,k]
+    y = torch.zeros((b, s, d), dtype=ye.dtype, device=x.device)
+    for j in range(k):
+        y = y + torch.gather(
+            contrib, 2, by_id[..., j, None, None].expand(b, s, 1, d))[:, :, 0]
+    return y, aux

@@ -1,5 +1,5 @@
-"""Transformer stack assembly, attention-only subset (port of
-``repro.models.transformer``).
+"""Transformer stack assembly for attention decoders with dense or MoE
+MLPs (port of ``repro.models.transformer``).
 
 The layer stack is organized by the config's repeating *pattern* of P block
 kinds; parameters for pattern position j are stacked over the R =
@@ -180,9 +180,11 @@ def _self_attn_seq(cfg, p, x, ctx: SeqCtx):
 
 
 def _mlp(cfg: ModelConfig, blk: BlockSpec, p: Params, x: torch.Tensor):
+    """The block's MLP over its pre-norm: (y, MoE aux loss or None)."""
+    h = L.apply_norm(cfg, p["norm2"], x)
     if blk.mlp == "moe":
-        raise NotImplementedError("apply_moe is ROADMAP Queue A item 9")
-    return L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["norm2"], x))
+        return L.apply_moe(cfg, p["mlp"], h)
+    return L.apply_mlp(cfg, p["mlp"], h), None
 
 
 def apply_block_seq(cfg: ModelConfig, blk: BlockSpec, p: Params,
@@ -196,7 +198,10 @@ def apply_block_seq(cfg: ModelConfig, blk: BlockSpec, p: Params,
     y, self_cache = _self_attn_seq(cfg, p["attn"], h, ctx)
     x = x + y
     if cfg.d_ff > 0:
-        x = x + _mlp(cfg, blk, p, x)
+        y, a = _mlp(cfg, blk, p, x)
+        x = x + y
+        if a is not None:
+            aux = aux + a
     return x, ({"self": self_cache} if ctx.want_cache else None), aux
 
 
@@ -216,7 +221,7 @@ def apply_block_decode(cfg: ModelConfig, blk: BlockSpec, p: Params,
                          window=cfg.sliding_window)
     x = x + L.attn_out(cfg, p["attn"], o)
     if cfg.d_ff > 0:
-        x = x + _mlp(cfg, blk, p, x)
+        x = x + _mlp(cfg, blk, p, x)[0]
     return x, {"self": {"k": ck, "v": cv, "pos": cpos}}
 
 
@@ -251,7 +256,7 @@ def apply_block_decode_paged(cfg: ModelConfig, blk: BlockSpec, p: Params,
                                    window=cfg.sliding_window)
     x = x + L.attn_out(cfg, p["attn"], o[:, None])
     if cfg.d_ff > 0:
-        x = x + _mlp(cfg, blk, p, x)
+        x = x + _mlp(cfg, blk, p, x)[0]
     return x, pool
 
 
@@ -289,7 +294,7 @@ def apply_block_prefill_paged(cfg: ModelConfig, blk: BlockSpec, p: Params,
                                   block_table, start, context_len)
     x = x + L.attn_out(cfg, p["attn"], o[None])
     if cfg.d_ff > 0:
-        x = x + _mlp(cfg, blk, p, x)
+        x = x + _mlp(cfg, blk, p, x)[0]
     return x, pool
 
 

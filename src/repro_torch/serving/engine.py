@@ -106,6 +106,15 @@ from repro_torch.serving.telemetry import (IterationRecord, SlotGauge,
                                            TraceRecorder, summarize_latency)
 
 
+def place_weights(model: Model, params: Any, plan: OffloadPlan,
+                  device: str | torch.device) -> tuple[OffloadRuntime, Any]:
+    """``params`` split by ``plan`` and placed as an engine places them
+    (``OffloadRuntime.place``: offloaded units pinned in host memory on a
+    GPU): the runtime and the placed tree."""
+    rt = OffloadRuntime(model=model, plan=plan, device=device)
+    return rt, rt.place(split_model_params(params, plan))
+
+
 @dataclasses.dataclass
 class EngineConfig:
     max_batch: int = 8
@@ -471,13 +480,24 @@ class ServingEngine:
         if self._runtime is None or self._runtime.plan.interval != \
                 self.interval:
             self._release_placement()
-            rt = OffloadRuntime(model=self.model,
-                                plan=self._plan(self.interval),
-                                device=self.device)
-            self._placed = rt.place(split_model_params(self.params, rt.plan))
-            self._runtime = rt
+            self._runtime, self._placed = place_weights(
+                self.model, self.params, self._plan(self.interval),
+                self.device)
             self._placements += 1
         return self._runtime, self._placed
+
+    def adopt_placement(self, rt: OffloadRuntime, placed: Any) -> None:
+        """Serve from a placement made outside the engine: ``placed``, what
+        ``place_weights`` returned for this engine's weights and ``rt.plan``. The engine switches to ``rt.plan.interval`` and holds
+        the placement as ``_rt`` holds its own, until an interval switch
+        releases it. A calibration can so time the host link on the very
+        pinned buffers the engine will stream from before it builds the
+        records the engine serves against."""
+        if not self.set_interval(rt.plan.interval):
+            raise ValueError(f"interval {rt.plan.interval} refused")
+        self._release_placement()
+        self._runtime, self._placed = rt, placed
+        self._placements += 1
 
     def _release_placement(self) -> None:
         """Drop the placed parameters: their device tensors and pinned

@@ -46,9 +46,12 @@ from repro_torch.core.interval import (  # noqa: E402
 from repro_torch.core.simulator import (  # noqa: E402
     schedule_deepspeed, schedule_for_interval, simulate_iteration)
 from repro_torch.launch import profile_engine as P  # noqa: E402
-from repro_torch.models.spec import params_from_numpy, to_tensor  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.models.spec import (params_from_numpy, to_tensor,  # noqa: E402
+                                     tree_leaves)
 from repro_torch.models.transformer import pattern_info  # noqa: E402
-from repro_torch.serving.engine import EngineConfig  # noqa: E402
+from repro_torch.serving.engine import (EngineConfig,  # noqa: E402
+                                       ServingEngine, place_weights)
 
 RTOL, ATOL = 5e-2, 1e-1
 # relative L2 error limit of the timed units' hidden states: the port
@@ -293,6 +296,17 @@ def _small_config():
     return cfg, ecfg
 
 
+def _placement(cfg, ecfg) -> dict:
+    """The engine's default weights placed at the HBM budget's interval,
+    as ``profile_engine.placement_link`` places them (no walks: the ring's
+    copies need a GPU)."""
+    params = P.engine_weights(cfg, "cpu")
+    _, units = pattern_info(cfg)
+    rt, placed = place_weights(build_model(cfg), params, OffloadPlan(
+        units, P.memory_interval(cfg, ecfg)), "cpu")
+    return {"params": params, "runtime": rt, "placed": placed}
+
+
 def test_fit_calibration_reproduces_the_measured_units():
     _, cfg = _cfgs()
     link = {"bw_bytes_s": 30e9, "latency_s": 9e-6}
@@ -362,7 +376,7 @@ def test_measured_engine_serves_on_cpu(monkeypatch):
                              mem_eff=0.02)
     records, _ = P.measured_records(cfg, ecfg, hw, device="cpu")
     monkeypatch.setattr(P, "smoke_config", lambda: (cfg, ecfg))
-    eng = P.measured_engine(records, hw, "cpu")
+    eng = P.measured_engine(records, hw, _placement(cfg, ecfg), "cpu")
     slo = P.measured_tpot_slo(records["decode"], eng.times_fn, cfg, ecfg,
                               batch=4, seq=64)
     assert eng.hw is hw
@@ -397,8 +411,78 @@ def test_measured_engine_fits_the_rest_term_apart(monkeypatch):
     monkeypatch.setattr(A, "_time_fn", _stub([]))
     records, _ = P.measured_records(cfg, ecfg, hw, device="cpu")
     monkeypatch.setattr(P, "smoke_config", lambda: (cfg, ecfg))
-    eng = P.measured_engine(records, hw, "cpu", rest_mem_eff=eff)
+    eng = P.measured_engine(records, hw, _placement(cfg, ecfg), "cpu",
+                            rest_mem_eff=eff)
     assert eng.times_fn(4, 64, "decode") == fitted(4, 64, "decode")
+
+
+def test_placement_link_fit_feeds_records_and_clock(monkeypatch):
+    """The link fitted from walks of the ring's copies takes the slowest
+    walk (its per-unit copy time is the modeled transfer), and a preset
+    with that link gives the records and the clock the same transfer
+    term."""
+    cfg, ecfg = _small_config()
+    unit = costs.unit_weight_bytes(cfg)
+    lat = 2e-5
+    walks = {"unit_bytes": unit, "groups": 2,
+             "unit_copy_s": [3.1e-3, 3.6e-3, 3.2e-3, 3.3e-3]}
+    link = P.fit_placement_link(walks, lat)
+    assert link["host_link_bw"] == pytest.approx(unit / (3.6e-3 - lat))
+    assert link["slowest_gb_s"] == pytest.approx(unit / 3.6e-3 / 1e9)
+    assert link["median_gb_s"] == pytest.approx(unit / 3.25e-3 / 1e9)
+    hw = dataclasses.replace(H100_CALIBRATED, compute_eff=0.05, mem_eff=0.02,
+                             host_link_bw=link["host_link_bw"],
+                             host_link_latency_s=link["host_link_latency_s"])
+    monkeypatch.setattr(A, "_time_fn", _stub([]))
+    records, measured = P.measured_records(cfg, ecfg, hw, device="cpu")
+    assert all(mt.t_transfer_s == pytest.approx(3.6e-3)
+               for mt in measured.values())
+    clock = P.calibrated_clock(cfg, hw, P.fit_rest(cfg, 2e-4), "cpu")
+    for b, s, ph in ((4, 64, "decode"), (1, 32, "prefill")):
+        assert clock(b, s, ph).t_transfer_s == pytest.approx(3.6e-3)
+    # a faster link certifies no larger an SLO
+    fast = dataclasses.replace(hw, host_link_bw=unit / (3.1e-3 - lat))
+    fast_records, _ = P.measured_records(cfg, ecfg, fast, device="cpu")
+    slo = P.measured_tpot_slo(records["decode"], clock, cfg, ecfg,
+                              batch=4, seq=64)
+    slo_fast = P.measured_tpot_slo(
+        fast_records["decode"], P.calibrated_clock(cfg, fast, None, "cpu"),
+        cfg, ecfg, batch=4, seq=64)
+    assert slo_fast <= slo
+
+
+def test_measured_engine_adopts_the_timed_placement(monkeypatch):
+    """``engine_weights`` are the engine's own default weights, and the
+    measured engine serves from the placement it is given (the HBM
+    budget's interval, ``memory_interval``): every request finishes with a
+    clean audit and, the interval held (no autotuning), no other placement
+    is made."""
+    cfg, ecfg = _small_config()
+    ecfg = dataclasses.replace(ecfg, autotune=False)
+    monkeypatch.setattr(A, "_time_fn", _stub([]))
+    hw = dataclasses.replace(H100_CALIBRATED, compute_eff=0.05,
+                             mem_eff=0.02)
+    records, _ = P.measured_records(cfg, ecfg, hw, device="cpu")
+    monkeypatch.setattr(P, "smoke_config", lambda: (cfg, ecfg))
+    pl = _placement(cfg, ecfg)
+    default = ServingEngine("default", build_model(cfg), hw,
+                            records["prefill"], records["decode"],
+                            P.calibrated_clock(cfg, hw, None, "cpu"), ecfg,
+                            device="cpu")
+    for a, b in zip(tree_leaves(pl["params"]), tree_leaves(default.params)):
+        assert torch.equal(a, b)
+    rt, placed = pl["runtime"], pl["placed"]
+    assert rt.plan.interval == 2                 # the HBM ceiling
+    eng = P.measured_engine(records, hw, pl, "cpu")
+    assert eng.interval == 2 and eng._rt() == (rt, placed)
+    slo = P.measured_tpot_slo(records["decode"], eng.times_fn, cfg, ecfg,
+                              batch=4, seq=64)
+    reqs = P.smoke_requests(cfg.vocab_size, 4, np.random.default_rng(0),
+                            (20, 9, 30, 14), tpot_slo_s=slo)
+    out = eng.run(reqs, submit_all=True)
+    assert out["finished"] == len(reqs) and eng.trace.audit().ok
+    assert {it.interval for it in eng.trace.iterations} == {2}
+    assert eng._rt()[0] is rt and eng._placements == 1
 
 
 def test_measure_rest_times_the_lm_head(monkeypatch):

@@ -34,6 +34,7 @@ def _randn(rng, *shape, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,vh,d,page,nb,window", [
     (3, 8, 2, 64, 16, 3, 0), (1, 4, 1, 16, 8, 5, 0), (4, 16, 2, 128, 16, 4, 20),
+    (8, 48, 8, 128, 16, 64, 0),           # dbrx-132b's heads, g 6, 1024 keys
 ])
 def test_decode_kernel_matches_plain(cuda, b, h, vh, d, page, nb, window):
     rng = np.random.default_rng(0)
@@ -64,7 +65,8 @@ def _decode_inputs(rng, dev, b, h, vh, d, page, nb, layers=3):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,vh", [(8, 8), (16, 4), (16, 2)])   # g 1, 4, 8
+# g 1, 4, 8 and dbrx-132b's 6
+@pytest.mark.parametrize("h,vh", [(8, 8), (16, 4), (16, 2), (48, 8)])
 @pytest.mark.parametrize("window", [0, 50])
 def test_decode_kernel_split_edges(cuda, h, vh, window):
     """Contexts at and around one split's span (P pages), one token and
@@ -117,6 +119,7 @@ def test_decode_kernel_bitwise_repeatable_and_batch_independent(cuda):
     (1, 8, 8, 65, 193, 32, {"causal": False, "kv_len": 129}),
     (1, 4, 1, 40, 300, 64, {"pos_offset": -100}),   # decode-style offset
     (1, 4, 2, 130, 130, 128, {"kv_len": 90}),       # causal with kv_len
+    (1, 48, 8, 1024, 1024, 128, {}),    # dbrx-132b's bucketed prefill, g 6
 ])
 def test_flash_kernel_matches_plain(cuda, b, h, vh, sq, sk, d, kw):
     rng = np.random.default_rng(1)
@@ -176,6 +179,7 @@ CHUNK_CASES = [
     (30, 32, 2, 128, 16, 40, 480, 510),  # g 16
     (50, 6, 2, 32, 16, 40, 500, 550),    # g 3: padding rows in every tile
     (200, 4, 4, 16, 16, 40, 300, 500),   # g 1, 64 tokens per tile, 2 spans
+    (256, 48, 8, 128, 16, 64, 768, 1024),  # dbrx-132b's heads, g 6
 ]
 
 

@@ -8,7 +8,13 @@ decisions and the per-link bytes must be *equal*; only the logits differ,
 at bf16-rounding level. Greedy tokens follow the ``DualEngine`` rule
 (``tests/differential/harness.py``: rtol 5e-2, atol 1e-1, ties counted and
 bounded) and the port is teacher-forced with the reference's token, so a
-numeric tie cannot fork the two trajectories.
+numeric tie cannot fork the two trajectories. For a MoE decoder, both
+engines' expert sets are recorded at every MoE call: an emission whose
+tokens the two frameworks routed through different experts (a token near a
+routing tie flips under other rounding) may leave the logit tolerance and
+take another token, and at most ``ROUTED_APART`` of the emissions may be
+routed apart. Every other emission is held to the tolerance and the tie
+rule.
 """
 from __future__ import annotations
 
@@ -20,7 +26,17 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.configs.reduced import reduce_config as jreduce  # noqa: E402
+from repro.core import costs as jcosts  # noqa: E402
+from repro.core.analyzer import PerformanceAnalyzer as JAnalyzer  # noqa: E402
+from repro.core.hardware import A10 as JA10  # noqa: E402
 from repro.core.interval import NO_OFFLOAD, iter_time_with_interval_kv  # noqa: E402
+from repro.core.interval import OffloadPlan as JPlan  # noqa: E402
+from repro.models.model import build_model as jbuild  # noqa: E402
+from repro.models.transformer import pattern_info as jpattern_info  # noqa: E402
+from repro.serving.engine import EngineConfig as JEngineConfig  # noqa: E402
+from repro.serving.engine import ServingEngine as JEngine  # noqa: E402
 from repro.serving.request import Request as JRequest  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.reduced import reduce_config  # noqa: E402
@@ -37,26 +53,31 @@ from repro_torch.serving.request import Request as TRequest  # noqa: E402
 from _engine_builders import mk_reduced_engine  # noqa: E402
 
 RTOL, ATOL = 5e-2, 1e-1          # DualEngine's logit tolerance
+# the share of a MoE lockstep's emissions that the two frameworks may route
+# through different experts (each such emission is excused the tolerance)
+ROUTED_APART = 0.25
 DIMS = dict(d_model=64, heads=2, layers=4, d_ff=128, vocab=128)
 BATCHES, SEQS = (1, 2, 4), (16, 32, 64)
 
 
 def mk_port_engine(jeng, *, extra_device_pages=None, hbm_gb=None,
-                   page_size=16, port_ecfg=None, **build):
+                   page_size=16, port_ecfg=None, arch="qwen2.5-3b",
+                   resident_interval=NO_OFFLOAD, **build):
     """The port's engine with the reference builder's sizing logic
     (``tests/_engine_builders.py``), the reference engine's config and its
     weights, bridged bit for bit. The widths are ``DIMS`` unless ``build``
     names others; ``port_ecfg`` overrides config fields that must differ
-    between the two engines (a disk backing file)."""
+    between the two engines (a disk backing file). ``extra_device_pages``
+    are KV pages on top of ``resident_interval``'s resident weights."""
     dims = {k: build.get(k, v) for k, v in DIMS.items()}
-    cfg = reduce_config(get_config("qwen2.5-3b"), **dims)
+    cfg = reduce_config(get_config(arch), **dims)
     model = build_model(cfg)
     an = PerformanceAnalyzer(cfg, A10, measure="model")
     kv_tok = max(costs.kv_cache_bytes(cfg, 1, 1, model.virtual_kv), 1)
     page_bytes = page_size * kv_tok
     if extra_device_pages is not None:
         _, units = pattern_info(cfg)
-        hbm = OffloadPlan(units, NO_OFFLOAD).device_bytes(
+        hbm = OffloadPlan(units, resident_interval).device_bytes(
             costs.unit_weight_bytes(cfg)) + extra_device_pages * page_bytes
     else:
         hbm = hbm_gb * 1e9
@@ -71,6 +92,32 @@ def mk_port_engine(jeng, *, extra_device_pages=None, hbm_gb=None,
                          ecfg, device="cpu", params=params)
 
 
+def mk_reference_engine(name, *, arch, extra_device_pages, host_pages,
+                        resident_interval, page_size, max_batch, max_seq,
+                        batches, seqs, **dims):
+    """The reference engine of ``arch`` at the reduced ``dims``, sized as
+    ``tests/_engine_builders.py`` sizes its reduced qwen engines, with HBM
+    for ``resident_interval``'s resident weights plus
+    ``extra_device_pages`` KV pages."""
+    cfg = jreduce(jget_config(arch), **dims)
+    model = jbuild(cfg)
+    an = JAnalyzer(cfg, JA10, measure="model")
+    page_bytes = page_size * max(
+        jcosts.kv_cache_bytes(cfg, 1, 1, model.virtual_kv), 1)
+    _, units = jpattern_info(cfg)
+    hbm = JPlan(units, resident_interval).device_bytes(
+        jcosts.unit_weight_bytes(cfg)) + extra_device_pages * page_bytes
+    slos = [0.002 * k for k in range(1, 30)]
+    return JEngine(
+        name, model, JA10,
+        an.generate_record(slos, list(batches), list(seqs), "prefill"),
+        an.generate_record(slos, list(batches), list(seqs), "decode"),
+        an.layer_times,
+        JEngineConfig(max_batch=max_batch, max_seq=max_seq,
+                      page_size=page_size, hbm_budget_bytes=hbm,
+                      host_kv_bytes=host_pages * page_bytes))
+
+
 class Lockstep:
     """Steps both engines; checks equality of everything the policy layer
     produces and the DualEngine rule on every emitted token."""
@@ -81,6 +128,52 @@ class Lockstep:
         self.expect: dict[int, list] = {}
         self.compares = self.ties = 0
         teng._greedy = self._forced_token
+        # MoE (watch_routing): each framework's expert sets ([B, S, k],
+        # ids ascending) of its MoE calls in this step, the emissions whose
+        # tokens the two routed apart, and those of them whose logits left
+        # the tolerance or whose token differs (routing ties)
+        self.jroutes: list = []
+        self.troutes: list = []
+        self.moe_calls = 0
+        self.route_apart = self.route_ties = 0
+
+    def watch_routing(self, monkeypatch) -> None:
+        """Record both frameworks' expert sets at every MoE call: the
+        port's from ``layers.route``, the reference's from its router
+        inside the compiled step (an ordered ``jax.debug.callback``)."""
+        import jax.numpy as jnp
+
+        from repro.models import layers as JL
+        from repro_torch.models import layers as L
+
+        route, jmoe = L.route, JL.apply_moe
+
+        def watched(cfg, p, x):
+            probs, top_p, top_i = route(cfg, p, x)
+            self.troutes.append(top_i.sort(dim=-1).values.numpy())
+            return probs, top_p, top_i
+
+        def jwatched(cfg, p, x):
+            logits = jnp.einsum("bsd,de->bse", x, p["router"],
+                                preferred_element_type=jnp.float32)
+            _, top_i = jax.lax.top_k(jax.nn.softmax(logits, axis=-1),
+                                     cfg.moe.top_k)
+            jax.debug.callback(
+                lambda t: self.jroutes.append(np.sort(np.asarray(t), -1)),
+                top_i, ordered=True)
+            return jmoe(cfg, p, x)
+
+        monkeypatch.setattr(L, "route", watched)
+        monkeypatch.setattr(JL, "apply_moe", jwatched)
+        self.moe_calls = sum(b.mlp == "moe" for b in self.t.cfg.pattern) * \
+            pattern_info(self.t.cfg)[1]
+
+    def _sets(self, calls, req, slot, prefill: bool) -> np.ndarray:
+        """One emission's expert sets over one forward's MoE calls: the
+        prompt's tokens of a prefill, the request's row of a decode."""
+        if prefill:
+            return np.stack([c[0, :req.prompt_len] for c in calls])
+        return np.stack([c[slot, 0] for c in calls])
 
     def submit(self, jreq, treq) -> None:
         self.jreqs[jreq.rid] = jreq
@@ -88,7 +181,22 @@ class Lockstep:
         self.t.submit(treq)
 
     def _forced_token(self, req, logits) -> int:
-        want_logits, want_tok = self.expect[req.rid].pop(0)
+        want_logits, want_tok, want_sets = self.expect[req.rid].pop(0)
+        if self.moe_calls:
+            prefill = self.t.prefill_log and \
+                self.t.prefill_log[-1][2] is logits
+            got_sets = self._sets(self.troutes[-self.moe_calls:], req,
+                                  req.slot, prefill)
+            if not np.array_equal(got_sets, want_sets):
+                self.route_apart += 1
+                if (not np.allclose(logits, want_logits, rtol=RTOL,
+                                    atol=ATOL)
+                        or int(np.argmax(logits)) != want_tok):
+                    # the two frameworks routed this emission's tokens
+                    # through different experts
+                    self.compares += 1
+                    self.route_ties += 1
+                    return want_tok
         np.testing.assert_allclose(logits, want_logits, rtol=RTOL, atol=ATOL,
                                    err_msg=f"logits of rid {req.rid}")
         got_tok = int(np.argmax(logits))
@@ -103,23 +211,36 @@ class Lockstep:
 
     def step(self) -> None:
         before = {rid: len(r.generated) for rid, r in self.jreqs.items()}
+        self.jroutes.clear()
         self.j.step()
+        if self.moe_calls:
+            jax.effects_barrier()
         grown = {rid for rid, r in self.jreqs.items()
                  if len(r.generated) > before[rid]}
         # the reference's emissions this step, per rid in emission order:
-        # prefill / final-chunk logits, then the decode row of its slot
+        # prefill / final-chunk logits, then the decode row of its slot,
+        # each with its expert sets (each forward made moe_calls calls)
+        n = self.moe_calls
+        calls = [self.jroutes[i:i + n] for i in range(0, len(self.jroutes),
+                                                      n or 1)]
         self.expect = {rid: [] for rid in grown}
-        for req, _slot, lg in self.j.prefill_log:
-            self.expect[req.rid].append((lg, int(np.argmax(lg))))
+        for i, (req, slot, lg) in enumerate(self.j.prefill_log):
+            sets = self._sets(calls[i], req, slot, True) if n else None
+            self.expect[req.rid].append((lg, int(np.argmax(lg)), sets))
         d = self.j.last_decode
         if d is not None:
             for slot in np.flatnonzero(d["active"]):
                 rid = next(rid for rid in grown
                            if self.jreqs[rid].slot == slot)
                 lg = d["logits"][slot]
-                self.expect[rid].append((lg, int(np.argmax(lg))))
+                sets = self._sets(calls[len(self.j.prefill_log)],
+                                  self.jreqs[rid], slot, False) if n else None
+                self.expect[rid].append((lg, int(np.argmax(lg)), sets))
+        if n:
+            assert len(self.jroutes) == n * (len(self.j.prefill_log)
+                                             + (d is not None))
         for rid in grown:
-            assert [t for _, t in self.expect[rid]] == \
+            assert [e[1] for e in self.expect[rid]] == \
                 self.jreqs[rid].generated[before[rid]:]
         self.t.step()
         assert all(not q for q in self.expect.values()), \
@@ -221,20 +342,33 @@ CASES = {
                    max_seq=32, prefill_chunk_tokens=8,
                    incremental_prefill=True),
         reqs=dict(n=4, plen=(12, 20), new=(6, 4))),
+    # the MoE decoder (reduced dbrx-132b: 4 experts, top-2) at interval 2,
+    # HBM for that interval's resident units plus 2.5 KV pages: offloaded
+    # MoE units stream and cold prefixes spill to the host tier
+    "moe_host_tier": dict(
+        build=dict(arch="dbrx-132b", resident_interval=2,
+                   extra_device_pages=2.5, host_pages=24, page_size=8,
+                   max_seq=32),
+        interval=2, reqs=dict(n=4, plen=(6, 12, 9), new=(10, 6))),
 }
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_engine_lockstep(case):
+def test_engine_lockstep(case, monkeypatch):
     spec = CASES[case]
     build = dict(max_batch=4, max_seq=48, batches=BATCHES, seqs=SEQS, **DIMS)
     build.update(spec["build"])
-    jeng, _ = mk_reduced_engine(name=case, **build)
+    if "arch" in build:
+        jeng = mk_reference_engine(case, **build)
+    else:
+        jeng, _ = mk_reduced_engine(name=case, **build)
     teng = mk_port_engine(jeng, **build)
     if "interval" in spec:
         assert jeng.set_interval(spec["interval"])
         assert teng.set_interval(spec["interval"])
     ls = Lockstep(jeng, teng)
+    if teng.cfg.moe is not None:
+        ls.watch_routing(monkeypatch)
     if spec.get("burst"):
         n = _burst(ls)
     else:
@@ -256,7 +390,10 @@ def test_engine_lockstep(case):
     assert teng.scheduler.stats == jeng.scheduler.stats
     report = teng.trace.audit()
     assert report.ok, report.violations
-    assert ls.compares > 0 and ls.ties <= max(1, 0.05 * ls.compares)
+    assert ls.compares > 0
+    assert ls.ties <= max(1, 0.05 * ls.compares)
+    # the routing-tie excuse leaves most emissions held to the tolerance
+    assert ls.route_apart <= ROUTED_APART * ls.compares
     if case == "host_tier":
         assert teng.streamed_pages_peak > 0 and teng.host_kv_peak_pages > 0
     if case == "preemption":
@@ -279,3 +416,36 @@ def test_engine_lockstep(case):
         assert teng.interval == 2 and teng.kv.host.total_pages == 0
     if case == "incremental_host_tier":
         assert teng.chunk_pages_streamed > 0
+    if case == "moe_host_tier":
+        assert teng.cfg.moe is not None and teng.interval == 2
+        assert teng.streamed_pages_peak > 0 and teng.host_kv_peak_pages > 0
+        assert {it.interval for it in teng.trace.iterations} == {2}
+
+
+def test_moe_prefill_kv_independent_of_prompt_length():
+    """The bucketed one-shot prefill of the MoE decoder: a shared 2-page
+    prefix gets the same KV bits under prompts of different lengths. Pad
+    tokens count toward each expert's capacity after every real token, and
+    the capacity comes from the bucket, so no real token's dispatch
+    depends on what follows it."""
+    from repro_torch.core.memory_manager import merge_stacked
+    from repro_torch.launch.serve import build_engine
+
+    cfg = reduce_config(get_config("dbrx-132b"), **DIMS)
+    _, units = pattern_info(cfg)
+    eng = build_engine("moe", cfg, A10, EngineConfig(
+        max_batch=2, max_seq=48, page_size=8,
+        hbm_budget_bytes=OffloadPlan(units, 2).device_bytes(
+            costs.unit_weight_bytes(cfg)) + 1e6), [0.01], device="cpu")
+    assert eng.set_interval(2)
+    rng = np.random.default_rng(7)
+    shared = rng.integers(0, cfg.vocab_size, 16).astype(np.int32)
+    kv = []
+    for n in (5, 29):
+        p = np.concatenate([shared, rng.integers(0, cfg.vocab_size, n)
+                            .astype(np.int32)])
+        _, caches, _ = eng._bucketed_prefill(p, len(p))
+        merged = merge_stacked(caches, eng._rt()[0].plan)
+        kv.append([m["self"][key][:, :, :16] for m in merged
+                   for key in ("k", "v")])
+    assert all(torch.equal(a, b) for a, b in zip(*kv))

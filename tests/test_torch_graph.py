@@ -30,6 +30,7 @@ from repro_torch.kernels import decode_attention as DA  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.launch.serve import build_engine  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.models.spec import tree_leaves  # noqa: E402
 from repro_torch.models.transformer import pattern_info  # noqa: E402
 from repro_torch.serving.engine import EngineConfig  # noqa: E402
 from repro_torch.serving.request import Request  # noqa: E402
@@ -327,3 +328,39 @@ def test_capture_with_an_unjoined_side_stream_raises(cuda):
     torch.cuda.synchronize()
     assert torch.equal(x * 2, torch.full_like(x, 2.0))
 
+
+
+@pytest.mark.cuda
+def test_placement_link_times_the_engines_own_stack(cuda):
+    """``profile_engine.placement_link`` times walks of the ring's copies
+    out of the pinned stack that the measured engine then streams from:
+    the walks read the adopted runtime's host leaves, which stay the
+    engine's through its steps, and the walks add no prefetch."""
+    from repro_torch.launch import profile_engine as P
+
+    cfg, _ = _card_model()
+    _, units = pattern_info(cfg)
+    page_bytes = 16 * costs.kv_cache_bytes(cfg, 1, 1)
+    ecfg = EngineConfig(max_batch=4, max_seq=64, page_size=16,
+                        hbm_budget_bytes=OffloadPlan(units, 4).device_bytes(
+                            costs.unit_weight_bytes(cfg)) + 8 * page_bytes)
+    pl = P.placement_link(cfg, P.memory_interval(cfg, ecfg), latency_s=1e-5)
+    rt, walks = pl["runtime"], pl["walks"]
+    assert rt.plan.interval == 4 and walks["groups"] == rt.plan.num_groups
+    assert len(walks["unit_copy_s"]) == P.LINK_WALKS
+    assert all(t > 0 for t in walks["unit_copy_s"])
+    assert pl["link"]["slowest_gb_s"] <= pl["link"]["median_gb_s"]
+    assert rt.prefetch_copies == 0
+    eng = build_engine("adopted", cfg, PRESETS["h100"], ecfg,
+                       [0.002 * k for k in range(1, 30)], device="cuda",
+                       params=pl["params"])
+    eng.adopt_placement(rt, pl["placed"])
+    stack = eng._rt()[0]._stream.host
+    assert [t.data_ptr() for t in tree_leaves(stack)] == walks["host_ptrs"]
+    for i in range(2):
+        eng.submit(Request(rid=i, prompt=np.arange(9 + i, dtype=np.int32),
+                           max_new_tokens=3, ttft_slo_s=10.0,
+                           tpot_slo_s=10.0))
+    assert eng.set_interval(4)
+    eng.run([])
+    assert eng._rt()[0] is rt and eng.prefetch_copies > 0

@@ -384,3 +384,172 @@ def test_costs_equal_reference(name):
     assert OffloadPlan(cfg.num_layers // p, 3).device_bytes(
         costs.unit_weight_bytes(cfg)) == JPlan(
         jcfg.num_layers // p, 3).device_bytes(jcosts.unit_weight_bytes(jcfg))
+
+
+# ---------------------------------------------------------------------------
+# MoE (reduced dbrx-132b: 4 experts, top-2, SwiGLU experts)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def moe_models():
+    jcfg = jreduce(jget_config("dbrx-132b"), **DIMS)
+    cfg = reduce_config(get_config("dbrx-132b"), **DIMS)
+    jm, tm = jbuild(jcfg), build_model(cfg)
+    jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    return jm, jp, tm, tp
+
+
+def test_moe_bridged_weights_bitwise(moe_models):
+    """Router and expert leaves ([R, E, D, F]) cross the bridge bit for
+    bit, under the reference's keys."""
+    jm, jp, tm, tp = moe_models
+    assert sorted(tp["blocks"][0]["mlp"]) == ["router", "w1", "w2", "w3"]
+    e, d, f = (tm.cfg.moe.num_experts, tm.cfg.d_model, tm.cfg.d_ff)
+    assert tuple(tp["blocks"][0]["mlp"]["w1"].shape) == (4, e, d, f)
+    for a, t in zip(jax.tree.leaves(jp), tree_leaves(tp)):
+        a = np.asarray(a)
+        assert tuple(t.shape) == a.shape and t.dtype == torch.bfloat16
+        assert np.array_equal(t.view(torch.int16).numpy(),
+                              a.view(np.uint16).view(np.int16))
+    # the port's own init draws expert leaves with the reference's fan-in
+    # (the D axis, not E): their spread matches the bridged ones
+    own = tm.init(torch.Generator().manual_seed(0), "cpu")
+    for key in ("w1", "w2", "w3"):
+        ratio = (own["blocks"][0]["mlp"][key].float().std()
+                 / tp["blocks"][0]["mlp"][key].float().std())
+        assert 0.9 < float(ratio) < 1.1, key
+
+
+def _moe_block(moe_models, kind):
+    """(port x, reference x, port pool or cache, reference pool or cache)
+    of one MoE block of ``kind`` on the same inputs."""
+    jm, jp, tm, tp = moe_models
+    cfg, jcfg = tm.cfg, jm.cfg
+    layer = 1
+    jblk = jax.tree.map(lambda a: a[layer], jp["blocks"][0])
+    tblk = T.unit_slice(tp["blocks"][0], layer)
+    bf = lambda a: jnp.asarray(a).astype(jnp.bfloat16)
+    tb = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
+        torch.bfloat16)
+    if kind == "seq":
+        b, s = 2, 24
+        x = np.random.default_rng(1).standard_normal((b, s, cfg.d_model),
+                                                     np.float32)
+        pos = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s))
+        jctx = JT.SeqCtx(positions=jnp.asarray(pos), want_cache=True,
+                         cache_len=s, virtual_kv=jm.virtual_kv)
+        tctx = T.SeqCtx(positions=torch.from_numpy(pos.copy()),
+                        want_cache=True, cache_len=s,
+                        virtual_kv=tm.virtual_kv)
+        jy, jc, jaux = jax.jit(lambda p, x: JT.apply_block_seq(
+            jcfg, jcfg.pattern[0], p, x, jctx))(jblk, bf(x))
+        ty, tc, taux = T.apply_block_seq(cfg, cfg.pattern[0], tblk, tb(x),
+                                         tctx)
+        assert float(taux) > 0
+        assert float(taux) == pytest.approx(float(jaux), rel=2e-2)
+        return ty, jy, tc["self"]["k"], jc["self"]["k"]
+    if kind == "decode_paged":
+        _, pos, pool, bt, cl, wf, wo = _paged_inputs(cfg, tm.virtual_kv)
+        x = np.random.default_rng(2).standard_normal((len(pos), 1,
+                                                      cfg.d_model),
+                                                     np.float32)
+        jx, jpool = jax.jit(lambda p, x, pool: JT.apply_block_decode_paged(
+            jcfg, jcfg.pattern[0], p, x, jnp.asarray(pos), pool, layer,
+            jnp.asarray(bt), jnp.asarray(cl), jnp.asarray(wf),
+            jnp.asarray(wo), jm.virtual_kv, True))(jblk, bf(x), bf(pool))
+        tpool = tb(pool)
+        tx, _ = T.apply_block_decode_paged(
+            cfg, cfg.pattern[0], tblk, tb(x), torch.from_numpy(pos), tpool,
+            layer, torch.from_numpy(bt), torch.from_numpy(cl),
+            torch.from_numpy(wf).long(), torch.from_numpy(wo).long(),
+            tm.virtual_kv)
+        return tx, jx, tpool, jpool
+    _, start, pool, bt, end, wf, wo = _chunk_inputs(cfg, tm.virtual_kv)
+    c = end - start
+    x = np.random.default_rng(8).standard_normal((1, c, cfg.d_model),
+                                                 np.float32)
+    posm = (start + np.arange(c, dtype=np.int32))[None]
+    jx, jpool = jax.jit(lambda p, x, pool: JT.apply_block_prefill_paged(
+        jcfg, jcfg.pattern[0], p, x, jnp.asarray(posm), pool, layer,
+        jnp.asarray(bt), jnp.int32(end), jnp.asarray(wf), jnp.asarray(wo),
+        jm.virtual_kv, True))(jblk, bf(x), bf(pool))
+    tpool = tb(pool)
+    tx, _ = T.apply_block_prefill_paged(
+        cfg, cfg.pattern[0], tblk, tb(x), start, tpool, layer,
+        torch.from_numpy(bt), end, torch.from_numpy(wf).long(),
+        torch.from_numpy(wo).long(), tm.virtual_kv)
+    return tx, jx, tpool, jpool
+
+
+@pytest.mark.parametrize("kind", ["seq", "decode_paged", "prefill_paged"])
+def test_moe_block_matches_reference(moe_models, kind):
+    """``apply_block_seq`` (with its aux loss), ``apply_block_decode_paged``
+    and ``apply_block_prefill_paged`` of a MoE block against the
+    reference's, at the DualEngine tolerance."""
+    tx, jx, tkv, jkv = _moe_block(moe_models, kind)
+    if kind == "decode_paged":
+        tx, jx = tx[:2], jx[:2]              # row 2 of the inputs is idle
+    _close(tx, jx)
+    _close(tkv, jkv)
+
+
+@pytest.fixture(scope="module")
+def moe_runtime_logits(moe_models):
+    """Reference and port logits of one paged decode step per interval,
+    for the MoE model."""
+    jm, jp, tm, tp = moe_models
+    toks, pos, pool, bt, cl, wf, wo = _paged_inputs(tm.cfg, tm.virtual_kv)
+    _, r = JT.pattern_info(jm.cfg)
+    out = {}
+    for iv in (1, 2, NO_OFFLOAD):
+        jrt = JRuntime(model=jm, plan=JPlan(r, iv))
+        jl, _ = jax.jit(jrt.paged_decode_step)(
+            jsplit(jp, jrt.plan), jnp.asarray(toks), jnp.asarray(pos),
+            jnp.asarray(pool).astype(jnp.bfloat16), jnp.asarray(bt),
+            jnp.asarray(cl), jnp.asarray(wf), jnp.asarray(wo))
+        trt = OffloadRuntime(tm, OffloadPlan(r, iv), device="cpu")
+        tpool = torch.from_numpy(pool).to(torch.bfloat16)
+        tl, _ = trt.paged_decode_step(
+            trt.place(split_model_params(tp, trt.plan)),
+            torch.from_numpy(toks), torch.from_numpy(pos), tpool,
+            torch.from_numpy(bt), torch.from_numpy(cl), torch.from_numpy(wf),
+            torch.from_numpy(wo))
+        out[iv] = (jl, tl, tpool)
+    return out
+
+
+@pytest.mark.parametrize("interval", [1, 2, NO_OFFLOAD])
+def test_moe_runtime_paged_decode_matches_reference(moe_runtime_logits,
+                                                    interval):
+    """The MoE model's paged decode step through the runtime at each
+    interval: the reference's logits at the DualEngine tolerance, and
+    bitwise the all-resident step inside the port."""
+    jl, tl, tpool = moe_runtime_logits[interval]
+    _close(tl, jl)
+    _, ref_l, ref_pool = moe_runtime_logits[NO_OFFLOAD]
+    assert torch.equal(tl, ref_l)
+    assert torch.equal(tpool, ref_pool)
+
+
+@pytest.mark.parametrize("interval", [2, NO_OFFLOAD])
+def test_moe_prefill_matches_reference(moe_models, interval):
+    """The MoE model's prefill: the model's logits and aux loss at the
+    reference's, and the runtime at ``interval`` bitwise the model's own."""
+    jm, jp, tm, tp = moe_models
+    _, r = T.pattern_info(tm.cfg)
+    s = 16
+    toks = _tokens(1, s, tm.cfg.vocab_size, seed=4)
+    jl, _, _ = jax.jit(jm.prefill, static_argnums=2)(
+        jp, {"tokens": jnp.asarray(toks)}, s)
+    tl, _, _ = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, s)
+    _close(tl, jl)
+    _, _, jaux, _ = jax.jit(jm.forward)(jp, {"tokens": jnp.asarray(toks)})
+    _, _, taux, _ = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
+    assert float(taux) == pytest.approx(float(jaux), rel=2e-2)
+    plan = OffloadPlan(r, interval)
+    rt = OffloadRuntime(tm, plan, device="cpu")
+    got, _, _ = rt.prefill(split_model_params(tp, plan),
+                           {"tokens": torch.from_numpy(toks)}, s)
+    assert torch.equal(got, tl)

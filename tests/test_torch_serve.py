@@ -392,3 +392,22 @@ def test_calibrated_preset_on_the_cli(capsys):
     """``--hw h100_calibrated`` serves with the clock fitted on the card."""
     got = _summary(serve.main, ARGS + ["--hw", "h100_calibrated"], capsys)
     assert got["finished"] + got["rejected"] == 4 and got["finished"] > 0
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "grok-1-314b"])
+def test_moe_cli_matches_reference(arch, capsys):
+    """``--arch`` of a MoE decoder serves at the reduced width, as the
+    reference's serve does: the same summary keys, and the same policy
+    outcomes and modeled clock."""
+    pytest.importorskip("jax")
+    from repro.launch import serve as ref_serve
+
+    flags = ["--arch", arch, "--host-kv-gb", "0.0001"]
+    got = _summary(serve.main, ARGS + flags, capsys)
+    want = _summary(ref_serve.main, ARGS[2:] + flags, capsys)
+    assert sorted(got) == sorted(want)
+    assert got["finished"] + got["rejected"] == 4 and got["finished"] > 0
+    for key in ("finished", "rejected", "tokens", "slo_ok",
+                "wall_modeled_s", "link_bytes", "host_kv_peak_pages",
+                "streamed_pages_peak", "decode_path", "autotune_enabled"):
+        assert got[key] == want[key], key
