@@ -86,7 +86,27 @@ Phases, each fatal on failure:
    prompt lengths, prefill logits against plain attention, the decode
    graph's replay bitwise the eager step, one block's decode output
    against fp32. Then a reduced dbrx in lockstep with the CPU engine and
-   the serve CLI's ``--arch dbrx-132b``.
+   the serve CLI's ``--arch dbrx-132b``. Its clock's compute terms and
+   LM-head rest are fitted to dbrx's own unit times on the card
+   (``calibrate_units``), its link to the slowest of twenty ring walks,
+   ten at placement and ten just before serving (``walk_again``; the
+   measured engine of phase 4 takes its second ten the same way).
+9. gemma-2b at full width (head_dim 256, ``gemma_phase``) through the
+   engine at the smoke settings: a one-shot run through the flash and
+   decode kernels at D 256, a second run whose greedy tokens must be
+   bitwise the first's, an incremental run through the chunk kernel at
+   D 256, and the longest prompt's prefill against plain attention. The
+   three kernels' D 256 instances are checked and timed in phase 2
+   (``check_d256``) at gemma's shapes.
+10. Every model family through the dense-cache grouped decode
+   (``families_phase``): xlstm-125m, paligemma-3b (256 stub patches) and
+   seamless-m4t-medium (1024 stub frames into the encoder) at full width
+   and depth, and the reduced jamba, through ``OffloadRuntime.prefill`` /
+   ``.decode_step`` with the decode step as one CUDA graph: prefill
+   against plain attention, 16 steps each bitwise the eager grouped step
+   and within 3e-2 / 6e-2 of ``Model.decode_step``; jamba's Mamba and
+   attention blocks at full width (Mamba against fp32, its state across
+   seq and decode).
 
 Prints a JSON ``kernels`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
@@ -460,6 +480,162 @@ def check_chunk(flush: torch.Tensor) -> dict:
             "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "check": "pass", "checks": checks}
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of bytes over the
+    memory rate and operations over the bf16 tensor rate (ms, and which)."""
+    return max((nbytes / HBM_BYTES_S * 1e3, "bytes"),
+               (flops / BF16_FLOPS_S * 1e3, "operations"))
+
+
+def check_d256(flush: torch.Tensor) -> list[dict]:
+    """The three kernels at head_dim 256, at gemma-2b's serving shapes (8
+    query heads over 1 KV head, g 8): flash and chunk run their D 256
+    instances (32-key tiles, Q in shared memory), decode its own. Each is
+    held against its plain version over its edge cases and two launches
+    bitwise, then timed as the other rows are; flash beside
+    ``scaled_dot_product_attention`` (``enable_gqa``)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import prefill_attention as PA
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(4)
+    h, vh, d, page, layers, batch = 8, 1, 256, 16, 18, 8
+    nb = MAX_SEQ // page
+    bf = torch.bfloat16
+    rows = []
+
+    # flash: gemma's bucketed prefill of its longest prompt (512 tokens)
+    s = 512
+    q = torch.randn((1, s, h, d), generator=gen, device=dev).to(bf)
+    k = torch.randn((1, s, vh, d), generator=gen, device=dev).to(bf)
+    v = torch.randn((1, s, vh, d), generator=gen, device=dev).to(bf)
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    enc = torch.randn((2, 1024, 16, d), generator=gen, device=dev).to(
+        bf).transpose(1, 2)
+    cases = {"causal": (q, k, v, {}), "window": (q, k, v, {"window": 100}),
+             "kv_len": (q, k, v, {"causal": False, "kv_len": 333}),
+             "ragged": (q[:, :, :77], k[:, :, :77], v[:, :, :77], {}),
+             "pos_offset": (q[:, :, :40], k, v, {"pos_offset": -100}),
+             # cross attention: 64 queries over 1024 keys, no mask
+             "cross_sq_lt_sk": (enc[:, :, :64], enc, enc, {"causal": False})}
+    errs = []
+    for name, (qq, kk, vv, kw) in cases.items():
+        errs.append(max_err(FA.flash_attention(qq, kk, vv, **kw),
+                            FA.flash_attention_plain(qq, kk, vv, **kw),
+                            f"flash_d256[{name}]"))
+    if not torch.equal(FA.flash_attention(q, k, v), FA.flash_attention(q, k, v)):
+        raise AssertionError("flash_d256: two launches differ")
+    ms = time_ms(lambda: FA.flash_attention(q, k, v), flush=flush)
+    pairs = s * (s + 1) // 2
+    b_ms, b_by = bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+                       4 * h * pairs * d)
+    rows.append({
+        "name": "flash_attention_d256", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:79",
+        "shape": f"B=1 H={h} V={vh} S={s} D={d} causal",
+        "max_abs_err": max(errs), "ms": ms,
+        "graph_ms": graph_ms(lambda: FA.flash_attention(q, k, v), flush),
+        "plain_ms": time_ms(lambda: FA.flash_attention_plain(q, k, v)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), flush=flush),
+        "check": "pass", "checks": list(cases) + ["bitwise_repeat"]})
+
+    # decode and chunk read a layer slice of gemma's 6-D pool
+    frames = 2 * batch * nb + 1
+    pool = torch.randn((frames, page, layers, 2, vh, d), generator=gen,
+                       device=dev).to(bf)
+    kp, vp = pool[:, :, 9, 0], pool[:, :, 9, 1]
+    qd = torch.randn((batch, h, d), generator=gen, device=dev).to(bf)
+    bt = torch.randperm(frames - 1, generator=gen, device=dev)[
+        :batch * nb].reshape(batch, nb).to(torch.int32)
+    # the serving contexts: prompts of 17-512 tokens plus their decode
+    cl = torch.tensor([527, 314, 141, 78, 495, 215, 48, 32],
+                      dtype=torch.int32, device=dev)
+    span = DA.PAGES_PER_SPLIT * page
+    cases = {"main": (qd, bt, cl, 0), "window": (qd, bt, cl, 100),
+             "split_edges": (qd, bt, torch.tensor(
+                 [span, span - 1, span + 1, 1, 0, nb * page, 3 * span + 5,
+                  2 * span], dtype=torch.int32, device=dev), 0)}
+    errs = []
+    for name, (qq, tt, ll, win) in cases.items():
+        errs.append(max_err(
+            DA.paged_decode_attention(qq, kp, vp, tt, ll, window=win),
+            DA.paged_decode_attention_plain(qq, kp, vp, tt, ll, window=win),
+            f"paged_decode_d256[{name}]"))
+    if not torch.equal(DA.paged_decode_attention(qd, kp, vp, bt, cl),
+                       DA.paged_decode_attention(qd, kp, vp, bt, cl)):
+        raise AssertionError("paged_decode_d256: two launches differ")
+    tokens = int(cl.sum())
+    b_ms, b_by = bound(tokens * vh * d * 4 + 2 * batch * h * d * 2
+                       + bt.numel() * 4 + cl.numel() * 4,
+                       4 * tokens * h * d)
+    call = lambda: DA.paged_decode_attention(qd, kp, vp, bt, cl)
+    rows.append({
+        "name": "paged_decode_attention_d256", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:71",
+        "shape": f"B={batch} H={h} V={vh} D={d} page={page} nb={nb} "
+                 f"tokens={tokens}",
+        "max_abs_err": max(errs), "ms": time_ms(call, flush=flush),
+        "graph_ms": graph_ms(call, flush),
+        "plain_ms": time_ms(lambda: DA.paged_decode_attention_plain(
+            qd, kp, vp, bt, cl)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "check": "pass", "checks": list(cases) + ["bitwise_repeat"]})
+
+    # chunk: the second 256-token chunk of the 512-token prompt
+    qc = torch.randn((256, h, d), generator=gen, device=dev).to(bf)
+    t1 = bt[0]
+    cases = {"main": (qc, 256, 512), "first_chunk": (qc, 0, 256),
+             "partial_final": (qc[:44], 256, 300),
+             "cross_spans": (qc, 2 * PA.SPAN_KEYS - 100,
+                             3 * PA.SPAN_KEYS + 156),
+             "single_token": (qc[:1], 1000, 1001)}
+    errs = []
+    for name, (qq, st, ll) in cases.items():
+        errs.append(max_err(
+            PA.paged_chunk_attention(qq, kp, vp, t1, st, ll),
+            PA.paged_chunk_attention_plain(qq, kp, vp, t1, st, ll),
+            f"paged_chunk_d256[{name}]"))
+    full = PA.paged_chunk_attention(qc, kp, vp, t1, 256, 512)
+    if not torch.equal(full, PA.paged_chunk_attention(qc, kp, vp, t1, 256,
+                                                      512)):
+        raise AssertionError("paged_chunk_d256: two launches differ")
+    alone = PA.paged_chunk_attention(qc[7:8], kp, vp, t1, 263, 264)
+    if not torch.equal(alone[0], full[7]):
+        raise AssertionError("paged_chunk_d256: token 263 alone differs "
+                             "from its row in the chunk")
+    c, start, cl1 = 256, 256, 512
+    pairs = sum(start + t + 1 for t in range(c))
+    b_ms, b_by = bound(cl1 * vh * d * 4 + 2 * c * h * d * 2 + nb * 4,
+                       4 * h * d * pairs)
+    call = lambda: PA.paged_chunk_attention(qc, kp, vp, t1, start, cl1)
+    rows.append({
+        "name": "paged_chunk_attention_d256", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/prefill_attention.cu",
+        "replaces": "src/repro/kernels/prefill_attention.py:78",
+        "shape": f"C={c} H={h} V={vh} D={d} start={start} context={cl1}",
+        "max_abs_err": max(errs), "ms": time_ms(call, flush=flush),
+        "graph_ms": graph_ms(call, flush),
+        "plain_ms": time_ms(lambda: PA.paged_chunk_attention_plain(
+            qc, kp, vp, t1, start, cl1)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "check": "pass",
+        "checks": list(cases) + ["bitwise_repeat", "chunk_independent"]})
+    for r in rows:
+        log(f"{r['name']}: {r['shape']} checks={r['checks']} "
+            f"max_abs_err={r['max_abs_err']:.3g} ms={r['ms']:.5f} "
+            f"graph_ms={r['graph_ms']:.5f} plain_ms={r['plain_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) "
+            f"library_ms={r['library_ms']}")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1156,13 +1332,23 @@ def measured_engine_phase(calibration: dict) -> dict:
                                                    calibrated_clock,
                                                    measured_engine,
                                                    measured_tpot_slo,
+                                                   relinked_records,
                                                    smoke_config,
-                                                   smoke_requests)
+                                                   smoke_requests,
+                                                   walk_again)
 
-    records = calibration["records"]
     cfg, ecfg = smoke_config()
     rest_eff = calibration["cal"]["rest"]["mem_eff"]
     placement = calibration.pop("placement")
+    # a second set of ten walks just before serving: the link is refitted
+    # from the slowest of all twenty, and the records rebuilt with it from
+    # the unit times they measured (the baselines take the same)
+    walk_sets = walk_again(placement, calibration["cal"]["link"]["latency_s"])
+    calibration["hw"] = dataclasses.replace(
+        calibration["hw"], host_link_bw=placement["link"]["host_link_bw"])
+    calibration["records"] = records = relinked_records(
+        cfg, ecfg, calibration["measured"], calibration["hw"])
+    log("measured_engine_walk_sets: " + json.dumps(walk_sets))
     eng = measured_engine(records, calibration["hw"], placement,
                           rest_mem_eff=rest_eff)
     slo = measured_tpot_slo(records["decode"], eng.times_fn, cfg, ecfg)
@@ -1229,6 +1415,9 @@ def measured_engine_phase(calibration: dict) -> dict:
         "placement": after_run_link(eng),
         "calibration_link_gb_s": calibration["cal"]["link"]["gb_s"],
         "placement_link_gb_s_slowest": placement["link"]["slowest_gb_s"],
+        "walk_set_gb_s_slowest": [walk_sets["first"]["slowest_gb_s"],
+                                  walk_sets["second"]["slowest_gb_s"]],
+        "walk_sets_seconds_apart": walk_sets["seconds_between_sets"],
         "placements_made": eng._placements,
         "served_from_timed_placement":
             eng._rt()[0] is placement["runtime"],
@@ -2004,10 +2193,12 @@ def moe_phase() -> dict:
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch.profile_engine import (MOE_LAYERS, PROMPT_LENS,
+                                                   calibrate_units,
                                                    measured_tpot_slo,
                                                    moe_config, moe_engine,
+                                                   moe_hardware,
                                                    placement_link, ring_walks,
-                                                   smoke_requests)
+                                                   smoke_requests, walk_again)
 
     # the engines of the earlier phases hold reference cycles (fleets,
     # routers, forced-token closures): collect them and return their
@@ -2023,9 +2214,24 @@ def moe_phase() -> dict:
            f" (cut from {MOE_LAYERS}: under {MOE_HOST_GB} GB available)"))
     t0 = time.perf_counter()
     cfg, ecfg, interval = moe_config(layers)
-    placement = placement_link(cfg, interval,
-                               PRESETS["h100"].host_link_latency_s)
-    eng = moe_engine(cfg, ecfg, placement)
+    latency = PRESETS["h100"].host_link_latency_s
+    placement = placement_link(cfg, interval, latency)
+    # Queue C 6 on this path: the step's compute terms fitted to dbrx's
+    # own unit times on the card (graph replays), the LM-head rest fitted
+    # apart, and the link from the slowest of twenty walks, the second ten
+    # just before serving
+    units = calibrate_units(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    walk_sets = walk_again(placement, latency)
+    hw = moe_hardware(cfg, units, placement["link"])
+    log("moe_calibration: " + json.dumps({
+        "units": units, "walk_sets": walk_sets,
+        "fitted": {k: getattr(hw, k) for k in (
+            "compute_eff", "mem_eff", "host_link_bw",
+            "host_link_latency_s")}}))
+    eng = moe_engine(cfg, ecfg, placement, hw,
+                     rest_mem_eff=units["rest"]["mem_eff"])
     rt, params = eng._rt()
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -2062,6 +2268,10 @@ def moe_phase() -> dict:
         "host_link_bw_used": eng.hw.host_link_bw,
         "placement_walk_gb_s_slowest": link["slowest_gb_s"],
         "placement_walk_gb_s_median": link["median_gb_s"],
+        "walk_set_gb_s_slowest": [walk_sets["first"]["slowest_gb_s"],
+                                  walk_sets["second"]["slowest_gb_s"]],
+        "walk_sets_seconds_apart": walk_sets["seconds_between_sets"],
+        "compute_eff": hw.compute_eff, "mem_eff": hw.mem_eff,
         "served_from_timed_placement": rt is placement["runtime"],
         "intervals": sorted({it.interval for it in eng.trace.iterations}),
         "host_weight_bytes": eng.host_weight_bytes,
@@ -2084,6 +2294,7 @@ def moe_phase() -> dict:
         "build_s": build_s, "run_s": run_s,
         "wall_modeled_s": out["wall_modeled_s"],
     }
+    summary["queue_c6_rule_met"] = summary["decode_steps_within_tpot_slo"] == 1.0
     log("moe: " + json.dumps(summary))
     if out["finished"] != len(reqs):
         raise AssertionError(f"moe engine finished {out['finished']} of "
@@ -2176,6 +2387,429 @@ def moe_phase() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: gemma-2b (head_dim 256) through the engine
+# ---------------------------------------------------------------------------
+
+
+def _serve(eng, reqs) -> tuple[dict, dict]:
+    """Run ``reqs`` on ``eng`` with the kernels' counts set to 0 just
+    before: (the run's summary, its launches by kernel)."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import prefill_attention as PA
+
+    DA.launches = FA.launches = PA.launches = 0
+    t0 = time.perf_counter()
+    out = eng.run(reqs, submit_all=True)
+    torch.cuda.synchronize()
+    out["run_s"] = time.perf_counter() - t0
+    launches = {"paged_decode_attention": DA.launches,
+                "flash_attention": FA.launches,
+                "paged_chunk_attention": PA.launches}
+    report = eng.trace.audit()
+    if out["finished"] != len(reqs):
+        raise AssertionError(f"{eng.name}: finished {out['finished']} of "
+                             f"{len(reqs)} requests")
+    if not report.ok:
+        raise AssertionError(f"trace audit: {report.violations[:5]}")
+    for r in eng.finished:
+        if len(r.generated) != r.max_new_tokens or not all(
+                0 <= t < eng.cfg.padded_vocab() for t in r.generated):
+            raise AssertionError(f"rid {r.rid}: bad tokens {r.generated}")
+    return out, launches
+
+
+def gemma_phase() -> dict:
+    """gemma-2b at full width (18 layers, d_model 2048, 8 heads over 1 KV
+    head, head_dim 256, d_ff 16384, vocab 256000; random weights, seed 0)
+    through the engine at the smoke engine's settings: a one-shot run of
+    the smoke requests (17-512 prompt tokens, 16 new tokens) through the
+    flash and decode kernels at D 256, a second run of the same weights and
+    requests whose greedy tokens must be bitwise the first's, and an
+    incremental run with 256-token chunks through the chunk kernel at
+    D 256. The longest prompt's prefill logits are held against plain
+    attention. Returns each D 256 kernel's launches on this path (decode
+    and flash from the first run, chunk from the incremental one)."""
+    from repro_torch.core.interval import NO_OFFLOAD
+    from repro_torch.launch.profile_engine import smoke_engine, smoke_requests
+
+    eng = smoke_engine(arch="gemma-2b")
+    cfg = eng.cfg
+    reqs = smoke_requests(cfg.vocab_size, 16, np.random.default_rng(0))
+    out, launches = _serve(eng, reqs)
+    intervals = sorted({it.interval for it in eng.trace.iterations})
+    tokens = {r.rid: list(r.generated) for r in eng.finished}
+    summary = {"finished": out["finished"], "tokens": out["tokens"],
+               "launches": launches, "intervals": intervals,
+               "prefetch_copies": eng.prefetch_copies,
+               "host_weight_bytes": eng.host_weight_bytes,
+               "decode_graph_captures": eng.decode_graph_captures,
+               "decode_stream_ms_median": statistics.median(eng.decode_ms),
+               "prefill_stream_ms_median": statistics.median(eng.prefill_ms),
+               "run_s": out["run_s"]}
+    log("gemma_engine: " + json.dumps(summary))
+    if not (launches["paged_decode_attention"] > 0
+            and launches["flash_attention"] > 0):
+        raise AssertionError(f"a D 256 kernel never ran: {launches}")
+    if max(intervals) >= NO_OFFLOAD or eng.prefetch_copies <= 0:
+        raise AssertionError("gemma: no weight unit was offloaded")
+
+    # the longest prompt's prefill through the flash kernel against plain
+    # dense attention, on the card
+    rt, placed = eng._rt()
+    longest = max(reqs, key=lambda r: r.prompt_len)
+    toks = {"tokens": torch.as_tensor(longest.prompt, device="cuda")[None]}
+    got, _, _ = rt.prefill(placed, toks, longest.prompt_len)
+    want, _, _ = rt.prefill(placed, toks, longest.prompt_len,
+                            attn_impl="reference")
+    got, want = got.float(), want.float()
+    rel = float((got - want).norm() / want.norm())
+    same_top = bool(got.argmax() == want.argmax())
+    log(f"gemma_prefill_vs_plain_attention: prompt {longest.prompt_len}, "
+        f"rel_l2 {rel:.4g} (bound {FULL_REL_L2}), argmax equal {same_top}")
+    if not (rel <= FULL_REL_L2 and same_top):
+        raise AssertionError("gemma prefill logits disagree with plain "
+                             "attention")
+    params = eng.params
+    del eng, rt, placed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a second run of the same weights and requests: greedy tokens bitwise
+    again = smoke_engine(arch="gemma-2b", params=params)
+    _serve(again, smoke_requests(cfg.vocab_size, 16,
+                                 np.random.default_rng(0)))
+    same = {r.rid: list(r.generated) for r in again.finished} == tokens
+    log(f"gemma_tokens_bitwise_second_run: {same}")
+    if not same:
+        raise AssertionError("gemma: the graphed decode's greedy tokens "
+                             "differ between two runs")
+    del again
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    inc = smoke_engine(arch="gemma-2b", prefill_chunk_tokens=256,
+                       incremental_prefill=True, params=params)
+    inc_reqs = smoke_requests(cfg.vocab_size, 16, np.random.default_rng(0))
+    out, inc_launches = _serve(inc, inc_reqs)
+    prompt_tokens = sum(r.prompt_len for r in inc_reqs)
+    log("gemma_incremental: " + json.dumps({
+        "finished": out["finished"], "launches": inc_launches,
+        "chunks": len(inc.chunk_ms),
+        "prefill_tokens_computed": inc.prefill_tokens_computed,
+        "prompt_tokens": prompt_tokens,
+        "chunk_stream_ms_median": statistics.median(inc.chunk_ms),
+        "run_s": out["run_s"]}))
+    if inc_launches["paged_chunk_attention"] <= 0:
+        raise AssertionError(f"the chunk kernel never ran: {inc_launches}")
+    if inc.prefill_tokens_computed != prompt_tokens:
+        raise AssertionError("gemma incremental: prompt tokens computed "
+                             "more than once")
+    launches["paged_chunk_attention"] = inc_launches["paged_chunk_attention"]
+    del inc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: every model family through the dense-cache grouped decode
+# ---------------------------------------------------------------------------
+
+# grouped decode against the plain step on one card
+# (tests/test_offload_equivalence.py)
+GROUPED_TOL = dict(rtol=3e-2, atol=6e-2)
+# relative L2 bound of a Mamba block's bf16 output against the block in fp32
+MAMBA_REL_L2 = 2e-2
+
+
+def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm())
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Each MoE call's expert sets ([B, S, k], ids ascending, on the CPU)
+    while the block is open (``layers.route`` wrapped)."""
+    from repro_torch.models import layers as L
+
+    route, calls = L.route, []
+
+    def watched(cfg, p, x):
+        probs, top_p, top_i = route(cfg, p, x)
+        calls.append(top_i.sort(dim=-1).values.cpu())
+        return probs, top_p, top_i
+
+    L.route = watched
+    try:
+        yield calls
+    finally:
+        L.route = route
+
+
+def _ms(fn) -> tuple[float, object]:
+    """One call's stream time (CUDA events) and its result."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def family_run(cfg, inputs: dict, cache_len: int, interval: int,
+               steps: int) -> dict:
+    """One model family through ``OffloadRuntime``: weights from seed 0
+    placed at ``interval`` (offloaded units pinned on the host), the
+    prefill (flash) held against plain attention, then ``steps`` greedy
+    decode steps as one CUDA graph, each held bitwise against the eager
+    grouped step on a copy of the caches and, at the grouped tolerance,
+    against ``Model.decode_step`` on the merged weights and caches."""
+    from repro_torch.core.interval import OffloadPlan
+    from repro_torch.core.memory_manager import (OffloadRuntime,
+                                                 merge_model_params,
+                                                 merge_stacked,
+                                                 split_model_params)
+    from repro_torch.models.model import build_model
+    from repro_torch.models.spec import tree_leaves, tree_map
+    from repro_torch.models.transformer import pattern_info
+
+    dev = torch.device("cuda")
+    model = build_model(cfg)
+    _, units = pattern_info(cfg)
+    plan = OffloadPlan(units, interval)
+    rt = OffloadRuntime(model, plan, dev)
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    placed = rt.place(split_model_params(params, plan))
+    # the plain step's weights: the same tensors, the offloaded units
+    # back on the device
+    plain = merge_model_params(tree_map(lambda t: t.to(dev), placed), plan)
+    del params
+    copies0 = rt.prefetch_copies
+    with recorded_routes() as flash_routes:
+        prefill_ms, (logits, caches, enc_pos) = _ms(
+            lambda: rt.prefill(placed, inputs, cache_len))
+    with recorded_routes() as plain_routes:
+        want, _, _ = rt.prefill(placed, inputs, cache_len,
+                                attn_impl="reference")
+    # a MoE row whose tokens the two prefills routed through different
+    # experts (a bf16 routing tie, ROADMAP Queue C 8) is excused; every
+    # other row is held to plain attention
+    alike = torch.ones(logits.shape[0], dtype=torch.bool)
+    for a, b in zip(flash_routes, plain_routes):
+        alike &= (a == b).flatten(1).all(-1)
+    rel = _rel_l2(logits[alike], want[alike]) if alike.any() else None
+    if alike.any() and not (rel <= FULL_REL_L2 and torch.equal(
+            logits[alike].argmax(-1), want[alike].argmax(-1))):
+        raise AssertionError(f"{cfg.name}: prefill against plain attention "
+                             f"rel_l2 {rel:.4g}")
+    plain_c = merge_stacked(caches, plan)
+    eager_c = tree_map(torch.clone, caches)
+    b = logits.shape[0]
+    tok = logits.argmax(-1).to(torch.int32)
+    pos = torch.full((b,), inputs["tokens"].shape[1] + (
+        inputs["frontend_embeds"].shape[1] if "frontend_embeds" in inputs
+        else 0), dtype=torch.int32, device=dev)
+    g_tok, g_pos = tok.clone(), pos.clone()
+    graph = rt.capture_decode(placed, g_tok, g_pos, caches, enc_pos)
+    decode_ms, worst, ties = [], 0.0, 0
+    for _ in range(steps):
+        ms, (got, _) = _ms(graph.replay)
+        decode_ms.append(ms)
+        eager, _ = rt.decode_step(placed, tok, pos, eager_c, enc_pos)
+        ref, plain_c = model.decode_step(plain, tok, pos, plain_c, enc_pos)
+        if not torch.equal(got, eager) or not all(
+                torch.equal(x, y) for x, y in zip(tree_leaves(caches),
+                                                  tree_leaves(eager_c))):
+            raise AssertionError(f"{cfg.name}: graph replay differs from "
+                                 f"the eager grouped step")
+        g, w = got.float(), ref.float()
+        worst = max(worst, float((g - w).abs().max()))
+        if not torch.allclose(g, w, **GROUPED_TOL):
+            raise AssertionError(f"{cfg.name}: grouped decode against the "
+                                 f"plain step, max |err| "
+                                 f"{float((g - w).abs().max()):.4g}")
+        for gr, wr in zip(g, w):
+            gi, wi = int(gr.argmax()), int(wr.argmax())
+            if gi != wi:
+                tie = GROUPED_TOL["atol"] + GROUPED_TOL["rtol"] * abs(
+                    float(wr[wi]))
+                if not (wr[wi] - wr[gi] <= tie and gr[gi] - gr[wi] <= tie):
+                    raise AssertionError(f"{cfg.name}: argmax {gi} vs {wi}")
+                ties += 1
+        tok = got.argmax(-1).to(torch.int32)
+        pos = pos + 1
+        g_tok.copy_(tok)
+        g_pos.copy_(pos)
+    torch.cuda.synchronize()
+    out = {"model": cfg.name, "layers": cfg.num_layers,
+           "encoder_layers": cfg.encoder_layers, "batch": b,
+           "interval": interval, "groups": plan.num_groups,
+           "prefill_rel_l2": rel, "prefill_ms": prefill_ms,
+           "prefill_rows_routed_apart": int((~alike).sum()),
+           "decode_stream_ms_median": statistics.median(decode_ms),
+           "decode_stream_ms_max": max(decode_ms),
+           "grouped_vs_plain_max_abs": worst, "argmax_ties": ties,
+           "graph_bitwise_eager": True,
+           "prefetch_copies": rt.prefetch_copies - copies0,
+           "host_weight_bytes": rt.host_weight_bytes,
+           # this run's device peak above what earlier phases still hold
+           "device_peak_bytes": torch.cuda.max_memory_allocated() - before}
+    # two prefills, and per step the replay and the eager grouped step: one
+    # copy per group each (the capture takes back its warm-up's copies)
+    want = plan.num_groups * (2 + 2 * steps) if rt._stream else 0
+    if out["prefetch_copies"] != want:
+        raise AssertionError(f"{cfg.name}: {out['prefetch_copies']} "
+                             f"prefetch copies, not {want}")
+    return out
+
+
+def jamba_blocks(steps: int = 8, s: int = 1024, b: int = 2) -> dict:
+    """jamba-1.5-large-398b's Mamba block (pattern position 0, dense MLP)
+    and attention block (position 4) at full width, each built alone
+    (random weights, seed 0): ``apply_block_seq`` over S, then ``steps``
+    ``apply_block_decode`` steps from its cache. The Mamba block in bf16 is
+    held against the same block in fp32 (relative L2), seq(S) then
+    decode(1) against the last row of seq(S + 1), and the attention
+    block's flash prefill against plain attention."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.spec import initialize, tree_leaves, tree_map
+
+    dev = torch.device("cuda")
+    cfg = get_config("jamba-1.5-large-398b")
+    vkv = cfg.num_kv_heads
+    gen = torch.Generator(dev).manual_seed(0)
+    x = (torch.randn((b, s + 1 + steps, cfg.d_model), generator=gen,
+                     device=dev) * 0.5).to(torch.bfloat16)
+    pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
+    out = {}
+    for j in (0, 4):
+        blk = cfg.pattern[j]
+        p = initialize(T.block_spec(cfg, blk), gen, dev)
+        ctx = T.SeqCtx(positions=pos, want_cache=True, cache_len=s + steps,
+                       virtual_kv=vkv)
+        seq_ms, (y, cache, _) = _ms(lambda: T.apply_block_seq(
+            cfg, blk, p, x[:, :s], ctx))
+        dec_ms, outs = [], []
+        for t in range(steps):
+            ms, (yt, cache) = _ms(lambda: T.apply_block_decode(
+                cfg, blk, p, x[:, s + t:s + t + 1],
+                torch.full((b,), s + t, dtype=torch.int32, device=dev),
+                cache, vkv))
+            dec_ms.append(ms)
+            outs.append(yt)
+        row = {"mixer": blk.mixer, "mlp": blk.mlp, "seq_ms": seq_ms,
+               "decode_ms_median": statistics.median(dec_ms),
+               "param_bytes": sum(t.numel() * t.element_size()
+                                  for t in tree_leaves(p))}
+        if blk.mixer == "mamba":
+            # the same block in fp32 on the same (bf16-valued) inputs
+            p32 = tree_map(lambda t: t.float(), p)
+            y32, c32, _ = T.apply_block_seq(cfg, blk, p32, x[:, :s].float(),
+                                            ctx)
+            rel_seq = _rel_l2(y, y32)
+            rel_dec = 0.0
+            for t in range(steps):
+                y1, c32 = T.apply_block_decode(
+                    cfg, blk, p32, x[:, s + t:s + t + 1].float(),
+                    torch.full((b,), s + t, dtype=torch.int32, device=dev),
+                    c32, vkv)
+                rel_dec = max(rel_dec, _rel_l2(outs[t], y1))
+            # state continuity: seq(S) then decode(1) is seq(S + 1)'s row S
+            ctx1 = T.SeqCtx(positions=torch.arange(
+                s + 1, dtype=torch.int32, device=dev).expand(b, s + 1),
+                virtual_kv=vkv)
+            y_all, _, _ = T.apply_block_seq(cfg, blk, p, x[:, :s + 1], ctx1)
+            rel_cont = _rel_l2(outs[0][:, 0], y_all[:, s])
+            row.update({"rel_l2_vs_fp32_seq": rel_seq,
+                        "rel_l2_vs_fp32_decode_max": rel_dec,
+                        "state_continuity_rel_l2": rel_cont})
+            if not max(rel_seq, rel_dec, rel_cont) <= MAMBA_REL_L2:
+                raise AssertionError(f"jamba Mamba block: {row}")
+            del p32, c32, y32
+        else:
+            ref, _, _ = T.apply_block_seq(cfg, blk, p, x[:, :s],
+                                          dataclasses.replace(
+                                              ctx, attn_impl="reference"))
+            row["prefill_rel_l2_vs_plain_attention"] = _rel_l2(y, ref)
+            if not row["prefill_rel_l2_vs_plain_attention"] <= FULL_REL_L2:
+                raise AssertionError(f"jamba attention block: {row}")
+        out[f"position_{j}"] = row
+        del p, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def families_phase() -> dict:
+    """xlstm-125m, paligemma-3b and seamless-m4t-medium at full width and
+    depth, and jamba-1.5-large-398b's blocks at full width and its reduced
+    model end to end, through ``OffloadRuntime.prefill`` /
+    ``.decode_step`` (``family_run``; jamba's blocks, ``jamba_blocks``).
+    Stub embeddings come from a numpy seed. Returns the flash kernel's
+    launches on this path."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduce_config
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import prefill_attention as PA
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+
+    def stub(b, n, d):
+        return torch.from_numpy((rng.standard_normal((b, n, d)) * 0.02)
+                                .astype(np.float32)).to(dev, torch.bfloat16)
+
+    def toks(cfg, b, n):
+        return torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, n))
+                                .astype(np.int32)).to(dev)
+
+    xl = get_config("xlstm-125m")
+    pg = get_config("paligemma-3b")
+    sm = get_config("seamless-m4t-medium")
+    jr = reduce_config(get_config("jamba-1.5-large-398b"), layers=16)
+    runs = [(xl, {"tokens": toks(xl, 4, 512)}, 512 + 16, 2),
+            (pg, {"frontend_embeds": stub(2, 256, pg.d_model),
+                  "tokens": toks(pg, 2, 256)}, 512 + 16, 3),
+            (sm, {"enc_embeds": stub(2, 1024, sm.d_model),
+                  "tokens": toks(sm, 2, 64)}, 64 + 16, 3),
+            (jr, {"tokens": toks(jr, 2, 64)}, 64 + 16, 2)]
+    DA.launches = FA.launches = PA.launches = 0
+    results = []
+    for cfg, inputs, cache_len, interval in runs:
+        t0 = time.perf_counter()
+        row = family_run(cfg, inputs, cache_len, interval, 16)
+        row["wall_s"] = time.perf_counter() - t0
+        if cfg is jr:
+            row["reduced"] = ["d_model 8192 -> 64", "heads 64 -> 4",
+                              "layers 72 -> 16 (2 periods)",
+                              "d_ff 24576 -> 128", "vocab 65536 -> 512",
+                              "experts 16 -> 4", "mamba d_state 16 -> 8"]
+        log("families: " + json.dumps(row))
+        results.append(row)
+        gc.collect()
+        torch.cuda.empty_cache()
+    blocks = jamba_blocks()
+    launches = FA.launches
+    blocks["reduced"] = ["blocks only: pattern positions 0 (Mamba + dense "
+                         "MLP) and 4 (attention + dense MLP) built alone, "
+                         "no MoE layer, no embedding or LM head"]
+    log("families_jamba_blocks: " + json.dumps(blocks))
+    if launches <= 0:
+        raise AssertionError("the flash kernel never ran on the families "
+                             "path")
+    log(f"families path launches: flash {launches}, decode {DA.launches}, "
+        f"chunk {PA.launches}")
+    return {"flash_attention": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2196,6 +2830,7 @@ def main() -> int:
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     kernels = [check_decode(flush), check_flash(flush), check_chunk(flush)]
+    kernels += check_d256(flush)
     del flush
     log("kernels checked: " + json.dumps(
         {k["name"]: k["check"] for k in kernels}))
@@ -2205,7 +2840,8 @@ def main() -> int:
     launches = engine_phase()
     launches["paged_chunk_attention"] = incremental_phase()
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        if k["name"] in launches:        # the D 256 rows: gemma_phase
+            k["launches"] = launches[k["name"]]
     disk_launches = disk_phase(card)
     log(f"disk path launches (async run): {json.dumps(disk_launches)}")
     calibration = calibration_phase(card)
@@ -2230,6 +2866,15 @@ def main() -> int:
     log(f"moe path launches: {json.dumps(moe_launches)}")
     reference_phase("moe_lockstep", arch="dbrx-132b")
     cli_phase(("--arch", "dbrx-132b"), "smoke_cli_moe_trace")
+    gc.collect()
+    torch.cuda.empty_cache()
+    d256 = gemma_phase()
+    log(f"gemma path launches: {json.dumps(d256)}")
+    for k in kernels:
+        if k["name"].endswith("_d256"):
+            k["launches"] = d256[k["name"][:-len("_d256")]]
+    families = families_phase()
+    log(f"families path launches: {json.dumps(families)}")
 
     log(f"total seconds: {time.perf_counter() - t_start:.1f}")
     log(card)                       # name, power limit as nvidia-smi gives

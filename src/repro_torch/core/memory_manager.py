@@ -23,14 +23,24 @@ and joins it back at the end, and every event the ring waits on is
 recorded inside the same walk, so a walk can be captured whole into a
 CUDA graph (``core.graphs``): the copies become memcpy nodes that read the
 pinned offloaded stack ``place`` made.
+
+``decode_step`` is the dense-cache grouped decode every model family runs
+(attention, Mamba, mLSTM, sLSTM, and the encoder-decoder's cross
+attention): the same walk, with each unit's slot-dense caches and
+recurrent states split like the weights (``split_caches``). Where the
+reference returns new caches, the port writes each unit's new cache into
+the split tree in place and returns that tree, so a CUDA graph of the
+step (``capture_decode``) updates the very buffers it was captured on.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
 
+from repro_torch.core import graphs
 from repro_torch.core.interval import OffloadPlan
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -278,6 +288,62 @@ class OffloadRuntime:
             tail_c.append(c)
         return x, {"resident": res_c, "offloaded": off_c, "tail": tail_c}
 
+    def _cache_at(self, caches_split: Any, unit_idx: int) -> Any:
+        """Unit ``unit_idx``'s caches: views into the split tree."""
+        g, iv = self.plan.num_groups, self.plan.interval
+        if unit_idx >= g * iv:
+            return T.unit_slice(caches_split["tail"], unit_idx - g * iv)
+        gi, j = divmod(unit_idx, iv)
+        if j < iv - 1:
+            return T.unit_slice(T.unit_slice(caches_split["resident"], gi), j)
+        return T.unit_slice(caches_split["offloaded"], gi)
+
+    # ----- dense-cache decode ---------------------------------------------------
+    def decode_step(self, params_split: Params, tokens: torch.Tensor,
+                    pos: torch.Tensor, caches_split: Any,
+                    enc_pos: torch.Tensor | None = None):
+        """One token for every row, through slot-dense caches split by
+        placement (``split_caches``, or the caches ``prefill`` returns).
+        Same group walk as ``paged_decode_step``: each group's offloaded
+        unit is prefetched on the side stream while its i-1 resident units
+        compute. Each unit's new caches (KV written at ``pos % cache_len``,
+        recurrent states advanced) are copied into ``caches_split`` in
+        place. tokens/pos: [B]. Returns (logits [B, V], caches_split)."""
+        cfg, vkv = self.model.cfg, self.model.virtual_kv
+
+        def apply_unit(x, pslices, unit_idx):
+            cs = self._cache_at(caches_split, unit_idx)
+            for j, blk in enumerate(cfg.pattern):
+                x, nc = T.apply_block_decode(cfg, blk, pslices[j], x, pos,
+                                             cs[j], vkv, enc_pos)
+                tree_map(lambda dst, src: dst if dst is src
+                         else dst.copy_(src), cs[j], nc)
+            return x, None
+
+        x = T.embed_tokens(cfg, params_split, tokens[:, None])
+        x, _ = self._walk(params_split, x, apply_unit)
+        x = L.apply_norm(cfg, params_split["final_norm"], x)
+        logits = T.lm_logits(cfg, params_split, x)[:, 0]
+        return logits, caches_split
+
+    def capture_decode(self, params_split: Params, tokens: torch.Tensor,
+                       pos: torch.Tensor, caches_split: Any,
+                       enc_pos: torch.Tensor | None = None) -> graphs.Graphed:
+        """``decode_step`` over these very tensors captured into one CUDA
+        graph (GPU only; one per runtime, i.e. per interval): callers
+        write the next tokens and positions into ``tokens`` / ``pos``,
+        ``replay()`` returns (logits, caches_split) and advances the caches
+        in place, and each replay counts its prefetch copies. The capture's
+        eager warm-up call is undone, so the caches hold what they held."""
+        saved = tree_map(torch.clone, caches_split)
+        counters = ([(self._stream, "copies")] if self._stream is not None
+                    else [])
+        graph = graphs.Graphed(
+            functools.partial(self.decode_step, params_split),
+            (tokens, pos, caches_split, enc_pos), counters)
+        tree_map(lambda dst, src: dst.copy_(src), caches_split, saved)
+        return graph
+
     # ----- paged decode ---------------------------------------------------------
     def paged_decode_step(self, params_split: Params, tokens: torch.Tensor,
                           pos: torch.Tensor, pool: torch.Tensor,
@@ -347,13 +413,20 @@ class OffloadRuntime:
                 attn_impl: str = "flash", last_pos: int | None = None):
         """Returns (logits [B,V] at ``last_pos``, caches split by placement
         ({"resident": [G, i-1, ...], "offloaded": [G, ...], "tail":
-        [r, ...]} per pattern position, None for empty sections), None)."""
+        [r, ...]} per pattern position, None for empty sections), enc_pos).
+        ``inputs`` as ``Model.forward`` takes them: tokens, and the
+        frontend's or the encoder's embeddings."""
         cfg, model = self.model.cfg, self.model
-        x = T.embed_tokens(cfg, params_split, inputs["tokens"])
+        enc_out = enc_pos = None
+        if cfg.encoder_layers > 0:
+            enc_out, enc_pos = model.encode(params_split, inputs["enc_embeds"],
+                                            attn_impl)
+        x = model.embed_inputs(params_split, inputs)
         b, s, _ = x.shape
         posm = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
         ctx = T.SeqCtx(positions=posm, want_cache=True, cache_len=cache_len,
-                       virtual_kv=model.virtual_kv, attn_impl=attn_impl)
+                       virtual_kv=model.virtual_kv, enc_out=enc_out,
+                       enc_pos=enc_pos, attn_impl=attn_impl)
 
         def apply_unit(x, pslices, _unit_idx):
             caches = []
@@ -378,4 +451,13 @@ class OffloadRuntime:
         # bitwise-independent of the padding; the last ROW is padding)
         h = x[:, -1:] if last_pos is None else x[:, last_pos:last_pos + 1]
         logits = T.lm_logits(cfg, params_split, h)[:, 0]
-        return logits, caches, None
+        return logits, caches, enc_pos
+
+    # ----- cache helpers ---------------------------------------------------------
+    def split_caches(self, caches: Any):
+        """Stacked [R, ...] caches -> the placement split (views, no copy)."""
+        return split_stacked(caches, self.plan)
+
+    def cache_spec_split(self, batch: int, cache_len: int, enc_len: int = 0):
+        return split_stacked(
+            self.model.cache_spec(batch, cache_len, enc_len), self.plan)

@@ -32,6 +32,17 @@
 // constants, and every reduction runs in a fixed order with no atomics, so
 // the output bits do not depend on the shape of the call. Heavy causal
 // tiles launch first.
+//
+// Head dim 256 (gemma, paligemma). At D 256 the O accumulator alone is 16
+// rows x 256 fp32 per warp, 128 registers a thread, and the Q fragments of
+// the smaller dims would add 64 more: the instance keeps Q in a shared
+// tile of its own and takes each k-step's fragment with ldmatrix one step
+// ahead, and walks 32-key tiles, so the scores, the P fragments and the
+// ring's fragments stay near 50 registers. Its shared memory (a three-
+// stage ring of 32-key K/V tiles plus the Q tile, 132 KB) is above the
+// 48 KB default, set per launch with cudaFuncSetAttribute; one block fits
+// on an SM. The arithmetic per key and its order are those of the other
+// dims.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,9 +52,15 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kBQ = 64;
-constexpr int kBK = 64;
 constexpr int kWarps = 4;  // 16 query rows each
 constexpr int kThreads = 32 * kWarps;
+
+// key positions per tile, and whether the Q fragments stay in registers
+// for the whole key walk (else they come from a shared Q tile per k-step)
+template <int D>
+__host__ __device__ constexpr int block_keys() { return D > 128 ? 32 : 64; }
+template <int D>
+__host__ __device__ constexpr bool q_in_regs() { return D <= 128; }
 
 struct Strides {
   int b, h, s;  // element strides of batch, head and sequence (d is unit)
@@ -109,12 +126,13 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int kv_len,
 
 // _flash_kernel's block-level pruning: a key tile runs unless the masks
 // leave it empty for every row of the query tile
-__device__ __forceinline__ bool tile_live(int k_lo, int q_lo, int q_hi,
-                                          int kv_len, int causal, int window) {
+__device__ __forceinline__ bool tile_live(int k_lo, int bk, int q_lo,
+                                          int q_hi, int kv_len, int causal,
+                                          int window) {
   bool live = k_lo < kv_len;
   if (causal) {
     live = live && k_lo <= q_hi;
-    if (window > 0) live = live && k_lo + kBK - 1 > q_lo - window;
+    if (window > 0) live = live && k_lo + bk - 1 > q_lo - window;
   }
   return live;
 }
@@ -123,38 +141,41 @@ __device__ __forceinline__ bool tile_live(int k_lo, int q_lo, int q_hi,
 // every ldmatrix on distinct banks
 constexpr int kPad = 8;
 // the K/V ring: stage i holds key tile i mod 3 as K then V, [BK][D + kPad]
-// each; the Q tile waits in the last stage's K slot until its fragments
-// are in registers
+// each; where the Q fragments stay in registers, the Q tile waits in the
+// last stage's K slot until they are taken, else it has a slot of its own
+// after the ring
 constexpr int kStages = 3;
 // ldmatrix loads issued ahead of the products that use them
 constexpr int kPrefetch = 4;
 
 template <int D>
 constexpr size_t smem_bytes() {
-  return sizeof(__nv_bfloat16) * static_cast<size_t>(2 * kStages * kBK)
+  return sizeof(__nv_bfloat16)
+         * static_cast<size_t>(2 * kStages * block_keys<D>()
+                               + (q_in_regs<D>() ? 0 : kBQ))
          * (D + kPad);
 }
 
 template <int D>
 __device__ __forceinline__ __nv_bfloat16* stage_k(__nv_bfloat16* ring, int st) {
-  return ring + 2 * st * kBK * (D + kPad);
+  return ring + 2 * st * block_keys<D>() * (D + kPad);
 }
 
 template <int D>
 __device__ __forceinline__ __nv_bfloat16* stage_v(__nv_bfloat16* ring, int st) {
-  return ring + (2 * st + 1) * kBK * (D + kPad);
+  return ring + (2 * st + 1) * block_keys<D>() * (D + kPad);
 }
 
-// rows [r0, r0 + 64) of a [S, D] slice into a padded shared tile; rows at
-// or past `limit` are zero-filled
-template <int D>
+// rows [r0, r0 + ROWS) of a [S, D] slice into a padded shared tile; rows
+// at or past `limit` are zero-filled
+template <int D, int ROWS>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src, int r0,
                                           int limit, int stride, int tid) {
   constexpr int kChunks = D / 8;  // 16-byte pieces per row
   constexpr int LD = D + kPad;
 #pragma unroll
-  for (int i = tid; i < kBK * kChunks; i += kThreads) {
+  for (int i = tid; i < ROWS * kChunks; i += kThreads) {
     const int r = i / kChunks, c = i - r * kChunks;
     const bool ok = r0 + r < limit;
     const __nv_bfloat16* g = ok ? src + static_cast<long long>(r0 + r) * stride + c * 8
@@ -170,16 +191,19 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     int H, int V, int Sq, int Sk, int kv_len, int causal, int window,
     int pos_off, Strides qs_, Strides ks_, Strides vs_, Strides os_) {
   constexpr int LD = D + kPad;
+  constexpr int BK = block_keys<D>();
+  constexpr bool QREG = q_in_regs<D>();
   constexpr int KS = D / 16;   // k-steps of QK^T over D
   constexpr int ND = D / 8;    // n-tiles of O over D
-  constexpr int NK = kBK / 8;  // n-tiles of S over a key tile
-  constexpr int KI = KS * (NK / 2);          // QK^T items of a key tile
-  constexpr int VI = (kBK / 16) * (ND / 2);  // PV items of a key tile
+  constexpr int NK = BK / 8;   // n-tiles of S over a key tile
+  constexpr int KI = KS * (NK / 2);         // QK^T items of a key tile
+  constexpr int VI = (BK / 16) * (ND / 2);  // PV items of a key tile
   const float scale_log2 = kLog2e / sqrtf(static_cast<float>(D));
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Qs = stage_k<D>(ring, kStages - 1);  // until its fragments load
+  __nv_bfloat16* Qs = QREG ? stage_k<D>(ring, kStages - 1)  // until taken
+                           : ring + 2 * kStages * BK * LD;
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int qt = gridDim.z - 1 - blockIdx.z;  // heaviest causal tiles first
@@ -200,10 +224,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   // the live key tiles form one contiguous run: each mask keeps a prefix
   // or a suffix of the tiles
   const int q_lo = q0 + pos_off, q_hi = q_lo + kBQ - 1;
-  const int nk = (Sk + kBK - 1) / kBK;
+  const int nk = (Sk + BK - 1) / BK;
   int jt_begin = nk, jt_end = 0;
   for (int jt = 0; jt < nk; ++jt) {
-    if (tile_live(jt * kBK, q_lo, q_hi, kv_len, causal, window)) {
+    if (tile_live(jt * BK, BK, q_lo, q_hi, kv_len, causal, window)) {
       jt_begin = min(jt_begin, jt);
       jt_end = jt + 1;
     }
@@ -219,19 +243,23 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 
   // prologue: Q with the first key tile, then the second key tile
   if (jt_begin < jt_end) {
-    load_tile<D>(Qs, qb, q0, Sq, qs_.s, tid);
-    load_tile<D>(stage_k<D>(ring, 0), kb, jt_begin * kBK, Sk, ks_.s, tid);
-    load_tile<D>(stage_v<D>(ring, 0), vb, jt_begin * kBK, Sk, vs_.s, tid);
+    load_tile<D, kBQ>(Qs, qb, q0, Sq, qs_.s, tid);
+    load_tile<D, BK>(stage_k<D>(ring, 0), kb, jt_begin * BK, Sk, ks_.s, tid);
+    load_tile<D, BK>(stage_v<D>(ring, 0), vb, jt_begin * BK, Sk, vs_.s, tid);
     cp_async_commit();
     if (jt_begin + 1 < jt_end) {
-      load_tile<D>(stage_k<D>(ring, 1), kb, (jt_begin + 1) * kBK, Sk, ks_.s, tid);
-      load_tile<D>(stage_v<D>(ring, 1), vb, (jt_begin + 1) * kBK, Sk, vs_.s, tid);
+      load_tile<D, BK>(stage_k<D>(ring, 1), kb, (jt_begin + 1) * BK, Sk, ks_.s, tid);
+      load_tile<D, BK>(stage_v<D>(ring, 1), vb, (jt_begin + 1) * BK, Sk, vs_.s, tid);
     }
     cp_async_commit();
   }
 
-  unsigned qa[KS][4];
+  // Q fragments: all k-steps in registers, or a two-step ring of them
+  // filled from the shared Q tile one k-step ahead
+  unsigned qa[QREG ? KS : 2][4];
   const int row0 = warp * 16;
+  const int q_frag = (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD
+                   + (lane >> 4) * 8;
   // this lane's ldmatrix row address within a K (x4) or V (x4.trans) item
   const int k_frag = ((lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8;
   const int v_frag = ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
@@ -239,18 +267,17 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const int i = jt - jt_begin, st = i % kStages;
     cp_async_wait<1>();  // tile jt is here; tile jt + 1 may be in flight
     __syncthreads();     // ... for every thread, and tile jt - 1 is done
-    if (i == 0) {
+    if (QREG && i == 0) {
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks)
-        ldsm_x4(qa[ks], Qs + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD
-                            + ks * 16 + (lane >> 4) * 8);
+        ldsm_x4(qa[ks], Qs + q_frag + ks * 16);
       __syncthreads();   // Q's slot is the third stage, refilled next
     }
     // keep two tiles in flight: tile jt + 2 goes where tile jt - 1 was
     if (jt + 2 < jt_end) {
       const int nx = (i + 2) % kStages;
-      load_tile<D>(stage_k<D>(ring, nx), kb, (jt + 2) * kBK, Sk, ks_.s, tid);
-      load_tile<D>(stage_v<D>(ring, nx), vb, (jt + 2) * kBK, Sk, vs_.s, tid);
+      load_tile<D, BK>(stage_k<D>(ring, nx), kb, (jt + 2) * BK, Sk, ks_.s, tid);
+      load_tile<D, BK>(stage_v<D>(ring, nx), vb, (jt + 2) * BK, Sk, vs_.s, tid);
     }
     cp_async_commit();
     const __nv_bfloat16* Kt = stage_k<D>(ring, st);
@@ -265,14 +292,18 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
     unsigned fr[kPrefetch][4];
+    if (!QREG) ldsm_x4(qa[0], Qs + q_frag);
 #pragma unroll
     for (int i = 0; i < kPrefetch && i < KI; ++i)
       ldsm_x4(fr[i], Kt + k_frag + (i % (NK / 2)) * 16 * LD + (i / (NK / 2)) * 16);
 #pragma unroll
     for (int i = 0; i < KI; ++i) {
       const int ks = i / (NK / 2), n2 = i % (NK / 2), f = i % kPrefetch;
-      mma_bf16(s[2 * n2], qa[ks], fr[f][0], fr[f][1]);
-      mma_bf16(s[2 * n2 + 1], qa[ks], fr[f][2], fr[f][3]);
+      if (!QREG && n2 == 0 && ks + 1 < KS)
+        ldsm_x4(qa[(ks + 1) & 1], Qs + q_frag + (ks + 1) * 16);
+      const int qi = QREG ? ks : (ks & 1);
+      mma_bf16(s[2 * n2], qa[qi], fr[f][0], fr[f][1]);
+      mma_bf16(s[2 * n2 + 1], qa[qi], fr[f][2], fr[f][3]);
       if (i + kPrefetch < KI) {
         const int j = i + kPrefetch;
         ldsm_x4(fr[f], Kt + k_frag + (j % (NK / 2)) * 16 * LD + (j / (NK / 2)) * 16);
@@ -284,9 +315,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       ldsm_x4_trans(fr[i], Vt + v_frag + (i / (ND / 2)) * 16 * LD + (i % (ND / 2)) * 16);
 
     // scale in fp32, mask in registers where the tile crosses a mask edge
-    const int k_lo = jt * kBK;
-    const bool edge = k_lo + kBK - 1 >= kv_len
-        || (causal && (k_lo + kBK - 1 > q_lo
+    const int k_lo = jt * BK;
+    const bool edge = k_lo + BK - 1 >= kv_len
+        || (causal && (k_lo + BK - 1 > q_lo
                        || (window > 0 && k_lo <= q_hi - window)));
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
@@ -336,9 +367,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     // O += P V: P (bf16) from the S registers as the A operand. Item i is
     // (key step i / (ND/2), d pair i % (ND/2)), its V fragments loaded
     // kPrefetch items ahead
-    unsigned pa[kBK / 16][4];
+    unsigned pa[BK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
+    for (int kk = 0; kk < BK / 16; ++kk) {
       pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
       pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
       pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
@@ -400,8 +431,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
 // q [B,H,Sq,D], k/v [B,V,Sk,D], o [B,H,Sq,D], each addressed through its
 // (batch, head, sequence) element strides with unit stride along D. The
 // 16-byte copies need q, k and v 16-byte aligned with strides in multiples
-// of 8 elements (the wrapper checks). D must be 16, 32, 64 or 128. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for an unsupported D.
+// of 8 elements (the wrapper checks). D must be 16, 32, 64, 128 or 256.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for an unsupported D.
 extern "C" int flash_attention_fwd_bf16(
     const void* q, const void* k, const void* v, void* o, int B, int H, int V,
     int Sq, int Sk, int D, int kv_len, int causal, int window, int pos_off,
@@ -415,6 +446,7 @@ extern "C" int flash_attention_fwd_bf16(
     case 32: return launch<32>(q, k, v, o, B, H, V, Sq, Sk, kv_len, causal, window, pos_off, qs_, ks_, vs_, os_, st);
     case 64: return launch<64>(q, k, v, o, B, H, V, Sq, Sk, kv_len, causal, window, pos_off, qs_, ks_, vs_, os_, st);
     case 128: return launch<128>(q, k, v, o, B, H, V, Sq, Sk, kv_len, causal, window, pos_off, qs_, ks_, vs_, os_, st);
+    case 256: return launch<256>(q, k, v, o, B, H, V, Sq, Sk, kv_len, causal, window, pos_off, qs_, ks_, vs_, os_, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

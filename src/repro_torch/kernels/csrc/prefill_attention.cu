@@ -41,7 +41,7 @@
 // Pallas kernel keeps P in fp32: the one numeric departure).
 //
 // Split KV. A block's keys [0, k_end) are cut into fixed spans of kSpan keys
-// (kSpanTiles key tiles). The bounds depend only on key position: never on
+// (four 64-key tiles at D <= 128). The bounds depend only on key position: never on
 // C, start, the grid or the SM count. The grid is (token tile, KV head,
 // span), and a span that starts past its tile's k_end exits at once. A tile
 // with one span writes acc / max(l, 1e-30) as bf16 directly; a tile with
@@ -51,7 +51,7 @@
 // row's (m, l, acc), and the direct write and the combine of one non-empty
 // span do the same arithmetic, so a query row's output bits depend only on
 // its position and the keys up to it: not on the chunk that carries it, and
-// not from run to run. kSpanTiles 4 gives 32 x 2 x 4 = 256 blocks at the
+// not from run to run. Spans of 256 keys give 32 x 2 x 4 = 256 blocks at the
 // serving chunk (C 256, context 1024, H 16, V 2): one wave at two blocks
 // per SM, where one block per tile gave 64 on 132 SMs. Spans of 2 tiles
 // would double the partials the combine writes and reads; spans of 8 tiles
@@ -64,6 +64,14 @@
 // inside the last live page); masked scores are -1e30 and their
 // probabilities exactly 0; l is clamped at 1e-30, so context_len 0 writes
 // zeros; the key walk stops at the tile's last query position.
+//
+// Head dim 256 (gemma). The instance walks 32-key tiles (8 to a span, so
+// the spans' bounds, and with them the bits, follow the same positions as
+// at the other dims) and keeps Q in a shared tile of its own, taking each
+// k-step's fragment one step ahead: the O accumulator is 128 registers a
+// thread at D 256, and Q's fragments would add 64. About 134 KB of shared
+// memory, above the 48 KB default (set once with cudaFuncSetAttribute):
+// one block per SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,19 +81,25 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kRows = 64;        // (token, query head) rows per block
-constexpr int kBK = 64;          // key positions per tile
-constexpr int kSpanTiles = 4;   // key tiles per split span
-constexpr int kSpan = kSpanTiles * kBK;
+constexpr int kSpan = 256;       // key positions per split span
 constexpr int kWarps = 4;        // 16 rows each
 constexpr int kThreads = 32 * kWarps;
 // padded shared rows: 8 spare bf16 (16 bytes) per row put the 8 rows of
 // every ldmatrix on distinct banks
 constexpr int kPad = 8;
 // the K/V ring: stage i holds key tile i mod 3 as K then V, [BK][D + kPad]
-// each; the Q tile waits in the last stage's K slot
+// each; where the Q fragments stay in registers the Q tile waits in the
+// last stage's K slot, else it has a slot of its own after the ring
 constexpr int kStages = 3;
 // ldmatrix loads issued ahead of the products that use them
 constexpr int kPrefetch = 4;
+
+// key positions per tile (a divisor of kSpan), and whether the Q
+// fragments stay in registers for the whole key walk
+template <int D>
+__host__ __device__ constexpr int block_keys() { return D > 128 ? 32 : 64; }
+template <int D>
+__host__ __device__ constexpr bool q_in_regs() { return D <= 128; }
 
 struct Pool {
   const __nv_bfloat16* base;
@@ -161,21 +175,27 @@ int launch_spans(int C, int H, int V, int page, int start, int cl) {
   return spans_of(tile_key_end((C - 1) / tq, tq, C, start, live_end));
 }
 
+// bf16 elements of the ring and, where it has its own slot, the Q tile
+template <int D>
+__host__ __device__ constexpr int tile_elems() {
+  return (2 * kStages * block_keys<D>() + (q_in_regs<D>() ? 0 : kRows))
+         * (D + kPad);
+}
+
 template <int D>
 constexpr size_t smem_bytes() {
-  return sizeof(__nv_bfloat16) * static_cast<size_t>(2 * kStages * kBK)
-             * (D + kPad)
+  return sizeof(__nv_bfloat16) * static_cast<size_t>(tile_elems<D>())
          + sizeof(int2) * kSpan;
 }
 
 template <int D>
 __device__ __forceinline__ __nv_bfloat16* stage_k(__nv_bfloat16* ring, int st) {
-  return ring + 2 * st * kBK * (D + kPad);
+  return ring + 2 * st * block_keys<D>() * (D + kPad);
 }
 
 template <int D>
 __device__ __forceinline__ __nv_bfloat16* stage_v(__nv_bfloat16* ring, int st) {
-  return ring + (2 * st + 1) * kBK * (D + kPad);
+  return ring + (2 * st + 1) * block_keys<D>() * (D + kPad);
 }
 
 // the block's 64 query rows into a padded shared tile; padding rows (past
@@ -211,7 +231,7 @@ __device__ __forceinline__ void load_kv(__nv_bfloat16* ks, __nv_bfloat16* vs,
   constexpr int kChunks = D / 8;
   constexpr int LD = D + kPad;
 #pragma unroll
-  for (int i = tid; i < kBK * kChunks; i += kThreads) {
+  for (int i = tid; i < block_keys<D>() * kChunks; i += kThreads) {
     const int r = i / kChunks, c = i - r * kChunks;
     const bool ok = r < n;
     const int2 fo = ok ? rows[r] : make_int2(0, 0);
@@ -231,17 +251,20 @@ __global__ void __launch_bounds__(kThreads) chunk_split_kernel(
     float* __restrict__ part, int C, int H, int V, int page, int npages,
     int start, int cl, int q_st, int q_sh) {
   constexpr int LD = D + kPad;
+  constexpr int BK = block_keys<D>();
+  constexpr bool QREG = q_in_regs<D>();
   constexpr int KS = D / 16;   // k-steps of QK^T over D
   constexpr int ND = D / 8;    // n-tiles of O over D
-  constexpr int NK = kBK / 8;  // n-tiles of S over a key tile
-  constexpr int KI = KS * (NK / 2);          // QK^T items of a key tile
-  constexpr int VI = (kBK / 16) * (ND / 2);  // PV items of a key tile
+  constexpr int NK = BK / 8;   // n-tiles of S over a key tile
+  constexpr int KI = KS * (NK / 2);         // QK^T items of a key tile
+  constexpr int VI = (BK / 16) * (ND / 2);  // PV items of a key tile
   const float scale_log2 = kLog2e / sqrtf(static_cast<float>(D));
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Qs = stage_k<D>(ring, kStages - 1);  // until its fragments load
-  int2* rows_s = reinterpret_cast<int2*>(ring + 2 * kStages * kBK * LD);
+  __nv_bfloat16* Qs = QREG ? stage_k<D>(ring, kStages - 1)  // until taken
+                           : ring + 2 * kStages * BK * LD;
+  int2* rows_s = reinterpret_cast<int2*>(ring + tile_elems<D>());
 
   const int g = H / V, tq = kRows / g;
   const int x = blockIdx.x, vh = blockIdx.y, s = blockIdx.z;
@@ -253,7 +276,7 @@ __global__ void __launch_bounds__(kThreads) chunk_split_kernel(
   const int span_lo = s * kSpan;
   // keys of this span; 0 only for a tile that sees no key (context 0)
   const int n_keys = max(0, min(k_end, span_lo + kSpan) - span_lo);
-  const int nt = (n_keys + kBK - 1) / kBK;
+  const int nt = (n_keys + BK - 1) / BK;
   const int q_lo = start + t0;  // the tile's first query position
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -278,11 +301,11 @@ __global__ void __launch_bounds__(kThreads) chunk_split_kernel(
   if (nt > 0) {
     load_q<D>(Qs, q, t0, C, g, vh, q_st, q_sh, tid);
     load_kv<D>(stage_k<D>(ring, 0), stage_v<D>(ring, 0), pk, pv, rows_s,
-               min(kBK, n_keys), tid);
+               min(BK, n_keys), tid);
     cp_async_commit();
     if (nt > 1)
       load_kv<D>(stage_k<D>(ring, 1), stage_v<D>(ring, 1), pk, pv,
-                 rows_s + kBK, min(kBK, n_keys - kBK), tid);
+                 rows_s + BK, min(BK, n_keys - BK), tid);
     cp_async_commit();
   }
 
@@ -304,7 +327,11 @@ __global__ void __launch_bounds__(kThreads) chunk_split_kernel(
   float m_run[2] = {kNegInf, kNegInf};  // log2 domain
   float l_run[2] = {0.0f, 0.0f};         // this thread's columns only
 
-  unsigned qa[KS][4];
+  // Q fragments: all k-steps in registers, or a two-step ring of them
+  // filled from the shared Q tile one k-step ahead
+  unsigned qa[QREG ? KS : 2][4];
+  const int q_frag = (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD
+                   + (lane >> 4) * 8;
   // this lane's ldmatrix row address within a K (x4) or V (x4.trans) item
   const int k_frag = ((lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8;
   const int v_frag = ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
@@ -312,18 +339,17 @@ __global__ void __launch_bounds__(kThreads) chunk_split_kernel(
     const int st = i % kStages;
     cp_async_wait<1>();  // tile i is here; tile i + 1 may be in flight
     __syncthreads();     // ... for every thread, and tile i - 1 is done
-    if (i == 0) {
+    if (QREG && i == 0) {
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks)
-        ldsm_x4(qa[ks], Qs + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD
-                            + ks * 16 + (lane >> 4) * 8);
+        ldsm_x4(qa[ks], Qs + q_frag + ks * 16);
       __syncthreads();   // Q's slot is the third stage, refilled next
     }
     // keep two tiles in flight: tile i + 2 goes where tile i - 1 was
     if (i + 2 < nt) {
       const int nx = (i + 2) % kStages;
       load_kv<D>(stage_k<D>(ring, nx), stage_v<D>(ring, nx), pk, pv,
-                 rows_s + (i + 2) * kBK, min(kBK, n_keys - (i + 2) * kBK), tid);
+                 rows_s + (i + 2) * BK, min(BK, n_keys - (i + 2) * BK), tid);
     }
     cp_async_commit();
     const __nv_bfloat16* Kt = stage_k<D>(ring, st);
@@ -338,14 +364,18 @@ __global__ void __launch_bounds__(kThreads) chunk_split_kernel(
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[n][e] = 0.0f;
     unsigned fr[kPrefetch][4];
+    if (!QREG) ldsm_x4(qa[0], Qs + q_frag);
 #pragma unroll
     for (int j = 0; j < kPrefetch && j < KI; ++j)
       ldsm_x4(fr[j], Kt + k_frag + (j % (NK / 2)) * 16 * LD + (j / (NK / 2)) * 16);
 #pragma unroll
     for (int j = 0; j < KI; ++j) {
       const int ks = j / (NK / 2), n2 = j % (NK / 2), f = j % kPrefetch;
-      mma_bf16(sc[2 * n2], qa[ks], fr[f][0], fr[f][1]);
-      mma_bf16(sc[2 * n2 + 1], qa[ks], fr[f][2], fr[f][3]);
+      if (!QREG && n2 == 0 && ks + 1 < KS)
+        ldsm_x4(qa[(ks + 1) & 1], Qs + q_frag + (ks + 1) * 16);
+      const int qi = QREG ? ks : (ks & 1);
+      mma_bf16(sc[2 * n2], qa[qi], fr[f][0], fr[f][1]);
+      mma_bf16(sc[2 * n2 + 1], qa[qi], fr[f][2], fr[f][3]);
       if (j + kPrefetch < KI) {
         const int jj = j + kPrefetch;
         ldsm_x4(fr[f], Kt + k_frag + (jj % (NK / 2)) * 16 * LD + (jj / (NK / 2)) * 16);
@@ -359,8 +389,8 @@ __global__ void __launch_bounds__(kThreads) chunk_split_kernel(
     // scale in fp32 (never fused into a later add, so a score's bits do not
     // depend on whether its tile is masked), mask in registers where the
     // tile crosses the first query position or the live end
-    const int k_lo = span_lo + i * kBK;
-    const bool edge = k_lo + kBK > live_end || k_lo + kBK - 1 > q_lo;
+    const int k_lo = span_lo + i * BK;
+    const bool edge = k_lo + BK > live_end || k_lo + BK - 1 > q_lo;
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int n = 0; n < NK; ++n) {
@@ -408,9 +438,9 @@ __global__ void __launch_bounds__(kThreads) chunk_split_kernel(
     // O += P V: P (bf16) from the S registers as the A operand. Item i is
     // (key step i / (ND/2), d pair i % (ND/2)), its V fragments loaded
     // kPrefetch items ahead
-    unsigned pa[kBK / 16][4];
+    unsigned pa[BK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
+    for (int kk = 0; kk < BK / 16; ++kk) {
       pa[kk][0] = pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
       pa[kk][1] = pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
       pa[kk][2] = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
@@ -562,7 +592,7 @@ extern "C" int paged_chunk_splits(int C, int H, int V, int page, int start,
 // wrapper checks). block_table [nb] int32; out [C,H,D] contiguous; part an
 // fp32 scratch of S*V*C*(H/V)*(D+2) floats, S = paged_chunk_splits(...),
 // unused (may be null) when S is 1. start and cl come clamped by the
-// caller. D must be 16, 32, 64 or 128 and H / V at most 64. Launches on
+// caller. D must be 16, 32, 64, 128 or 256 and H / V at most 64. Launches on
 // `stream`; returns cudaGetLastError(), or cudaErrorInvalidValue for
 // unsupported shapes.
 extern "C" int paged_chunk_attention_bf16(
@@ -581,6 +611,7 @@ extern "C" int paged_chunk_attention_bf16(
     case 32: return launch<32>(q, kv_k, kv_v, block_table, part, out, C, H, V, page, npages, start, cl, q_st, q_sh, st);
     case 64: return launch<64>(q, kv_k, kv_v, block_table, part, out, C, H, V, page, npages, start, cl, q_st, q_sh, st);
     case 128: return launch<128>(q, kv_k, kv_v, block_table, part, out, C, H, V, page, npages, start, cl, q_st, q_sh, st);
+    case 256: return launch<256>(q, kv_k, kv_v, block_table, part, out, C, H, V, page, npages, start, cl, q_st, q_sh, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

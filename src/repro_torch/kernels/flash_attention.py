@@ -28,7 +28,7 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 BLOCK_Q = 64
 BLOCK_K = 64
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 # kernel launches since the last reset (the main-path evidence)
 launches = 0

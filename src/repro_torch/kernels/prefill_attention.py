@@ -32,7 +32,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GROUP = 64          # query heads per KV head the kernel's row tile holds
 # keys per split span: kSpan of csrc/prefill_attention.cu (each launch checks
 # split_geometry's span count against the library's)

@@ -57,7 +57,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import costs
 from repro_torch.core.analyzer import (MeasuredTimes, PerformanceAnalyzer,
-                                       _time_fn, decode_pool,
+                                       _layer_times, _time_fn, decode_pool,
                                        determinism_check,
                                        paged_decode_inputs, unit_time_stats)
 from repro_torch.core.baselines import (FlexGenDecision, deepspeed_plan,
@@ -67,6 +67,7 @@ from repro_torch.core.coordinator import max_interval_for_memory
 from repro_torch.core.graphs import Graphed
 from repro_torch.core.hardware import H100, PRESETS, HardwareModel
 from repro_torch.core.interval import (NO_OFFLOAD, LayerTimes, OffloadPlan,
+                                       optimal_interval,
                                        iter_time_with_interval_kv)
 from repro_torch.core.memory_manager import OffloadRuntime
 from repro_torch.core.record import PerformanceRecord
@@ -92,11 +93,11 @@ SLO_GRID = [0.002 * k for k in range(1, 120)]
 
 
 def smoke_config(prefill_chunk_tokens: int = 0,
-                 incremental_prefill: bool = False
+                 incremental_prefill: bool = False, arch: str = "qwen2.5-3b"
                  ) -> tuple[ModelConfig, EngineConfig]:
     """The full-width model and engine configuration of the smoke and
-    profile runs (see ``smoke_engine``)."""
-    cfg = get_config("qwen2.5-3b")
+    profile runs (see ``smoke_engine``); ``arch`` an attention decoder."""
+    cfg = get_config(arch)
     _, units = pattern_info(cfg)
     page_bytes = PAGE_SIZE * costs.kv_cache_bytes(cfg, 1, 1)
     ecfg = EngineConfig(
@@ -110,7 +111,8 @@ def smoke_config(prefill_chunk_tokens: int = 0,
 
 
 def smoke_engine(device: str = "cuda", *, prefill_chunk_tokens: int = 0,
-                 incremental_prefill: bool = False):
+                 incremental_prefill: bool = False, arch: str = "qwen2.5-3b",
+                 params: dict | None = None):
     """The full-width engine of the smoke and profile runs.
 
     HBM holds the resident units of interval 6 plus 40 KV pages: the memory
@@ -122,10 +124,12 @@ def smoke_engine(device: str = "cuda", *, prefill_chunk_tokens: int = 0,
     ``prefill_chunk_tokens`` / ``incremental_prefill`` are the
     ``EngineConfig`` fields of chunked prefill: with both, long prompts
     (``LONG_PROMPT_LENS``) prefill chunk by chunk through the paged
-    chunk-prefill kernel over pages that sit partly on the host tier."""
-    cfg, ecfg = smoke_config(prefill_chunk_tokens, incremental_prefill)
+    chunk-prefill kernel over pages that sit partly on the host tier.
+    ``arch`` swaps the model at the same settings (gemma-2b: head_dim 256);
+    ``params`` serves given weights instead of seed 0's."""
+    cfg, ecfg = smoke_config(prefill_chunk_tokens, incremental_prefill, arch)
     return build_engine("smoke", cfg, PRESETS["h100"], ecfg, SLO_GRID,
-                        device=device)
+                        device=device, params=params)
 
 
 def smoke_requests(vocab: int, max_new_tokens: int, rng: np.random.Generator,
@@ -171,20 +175,38 @@ def moe_config(layers: int = MOE_LAYERS
     return cfg, ecfg, units
 
 
+def moe_hardware(cfg: ModelConfig, units: dict, link: dict
+                 ) -> HardwareModel:
+    """The MoE engine's preset: the datasheet ``h100`` with the compute
+    and HBM efficiency fitted to this model's unit times on the card
+    (``calibrate_units``, ``fit_calibration``) and the host link of the
+    placement's slowest ring walk (``link``)."""
+    fitted = fit_calibration(
+        cfg, units["prefill"]["mean_s"], units["decode"]["mean_s"],
+        {"bw_bytes_s": link["host_link_bw"],
+         "latency_s": link["host_link_latency_s"]})
+    return dataclasses.replace(PRESETS["h100"], **fitted)
+
+
 def moe_engine(cfg: ModelConfig, ecfg: EngineConfig, placement: dict,
+               hw: HardwareModel, rest_mem_eff: float,
                device: str = "cuda") -> ServingEngine:
     """The MoE engine (``moe_config``) serving the weights of ``placement``
     (``placement_link`` at the configuration's interval) from that
     placement, its records on ``SLO_GRID`` and its clock (model mode) the
-    datasheet ``h100`` preset with the host link fitted from the
-    placement's slowest ring walk, so both model the buffers it streams
-    from. Serve it at ``measured_tpot_slo(..., interval=)`` at its
-    interval, the smallest SLO at which the decode record makes that
+    preset ``hw`` (``moe_hardware``: compute terms fitted on the card, the
+    placement's link) with the rest term fitted apart (``rest_mem_eff``,
+    ``calibrated_clock``), so both model the buffers it streams from and
+    the card's compute. Serve it at ``measured_tpot_slo(..., interval=)``
+    at its interval, the smallest SLO at which the decode record makes that
     interval the smallest feasible one (a keeping-up tuner's choice)."""
-    hw = dataclasses.replace(
-        PRESETS["h100"], host_link_bw=placement["link"]["host_link_bw"])
-    eng = build_engine("moe", cfg, hw, ecfg, SLO_GRID, device=device,
-                       params=placement["params"])
+    an = PerformanceAnalyzer(cfg, hw, measure="model", device=device)
+    batches, seqs = record_buckets(ecfg)
+    eng = ServingEngine("moe", build_model(cfg), hw,
+                        an.generate_record(SLO_GRID, batches, seqs, "prefill"),
+                        an.generate_record(SLO_GRID, batches, seqs, "decode"),
+                        calibrated_clock(cfg, hw, rest_mem_eff, device),
+                        ecfg, device=device, params=placement["params"])
     eng.adopt_placement(placement["runtime"], placement["placed"])
     return eng
 
@@ -421,6 +443,26 @@ def calibrated_clock(cfg: ModelConfig, hw: HardwareModel,
         t_rest_s=rest.measure_times(b, s, phase).t_rest_s)
 
 
+def calibrate_units(cfg: ModelConfig, iters: int = 3) -> dict:
+    """The unit times ``fit_calibration`` and ``fit_rest`` take, measured
+    on the card for any model as ``calibrate`` measures them for qwen: the
+    decode unit at (8, 1024) and the prefill unit at (1, 1024) as graph
+    replays (``unit_time_stats``, ``iters`` each), the decode unit's
+    enqueue beside its device time (``unit_enqueue_s``), and the LM-head
+    rest at the decode batch with its fitted HBM fraction."""
+    db, ds = CALIBRATION_BUCKETS["decode"]
+    pb, ps = CALIBRATION_BUCKETS["prefill"]
+    an = PerformanceAnalyzer(cfg, H100, measure="wallclock")
+    decode = unit_time_stats(an, db, ds, "decode", iters)
+    prefill = unit_time_stats(an, pb, ps, "prefill", iters)
+    rest_s = measure_rest(an, db)
+    return {"decode": {"batch": db, "seq": ds, **decode,
+                       **unit_enqueue_s(an, db, ds)},
+            "prefill": {"batch": pb, "seq": ps, **prefill},
+            "rest": {"batch": db, "s": rest_s, "mem_eff": fit_rest(cfg,
+                                                                   rest_s)}}
+
+
 def calibrate(cfg: ModelConfig) -> dict:
     """Measure on the card what ``H100_CALIBRATED`` is fitted from: the
     per-unit decode time at (8, 1024) with its CV over 5 measurements
@@ -527,7 +569,51 @@ def placement_link(cfg: ModelConfig, interval: int, latency_s: float,
                                OffloadPlan(units, interval), device)
     walks = ring_walks(rt)
     return {"params": params, "runtime": rt, "placed": placed,
-            "walks": walks, "link": fit_placement_link(walks, latency_s)}
+            "walks": walks, "walked_at": time.perf_counter(),
+            "link": fit_placement_link(walks, latency_s)}
+
+
+def walk_again(placement: dict, latency_s: float) -> dict:
+    """A second set of ``LINK_WALKS`` ring walks out of ``placement``'s
+    pinned stack, taken just before serving, and the link fitted from the
+    slowest walk of both sets (``fit_placement_link``), which ``placement``
+    then carries as its link. Returns each set's seconds per unit and its
+    own fit, the seconds between the sets and the fit of both."""
+    second = ring_walks(placement["runtime"])
+    first = placement["walks"]
+    both = dict(first, unit_copy_s=first["unit_copy_s"]
+                + second["unit_copy_s"])
+    placement["link"] = fit_placement_link(both, latency_s)
+    return {"first_unit_copy_ms": [t * 1e3 for t in first["unit_copy_s"]],
+            "second_unit_copy_ms": [t * 1e3 for t in second["unit_copy_s"]],
+            "first": fit_placement_link(first, latency_s),
+            "second": fit_placement_link(second, latency_s),
+            "seconds_between_sets": time.perf_counter()
+            - placement["walked_at"],
+            "link": placement["link"]}
+
+
+def relinked_records(cfg: ModelConfig, ecfg: EngineConfig,
+                     measured: dict[tuple[str, int, int], MeasuredTimes],
+                     hw: HardwareModel) -> dict[str, PerformanceRecord]:
+    """The records ``measured_records`` built, rebuilt from the unit times
+    they measured (its second value) with ``hw``'s host link: the link
+    sets only the transfer term, so nothing is timed again."""
+    batches, seqs = record_buckets(ecfg)
+    out = {}
+    for phase in ("prefill", "decode"):
+        rec = PerformanceRecord(model_name=cfg.name, hardware=hw.name,
+                                phase=phase, batches=sorted(batches),
+                                seqs=sorted(seqs), measure="wallclock")
+        for b in rec.batches:
+            for s in rec.seqs:
+                mt = measured[(phase, b, s)]
+                times = _layer_times(dataclasses.replace(
+                    mt, t_transfer_s=hw.transfer_time(mt.unit_bytes)))
+                for slo in SLO_GRID:
+                    rec.set(slo, b, s, optimal_interval(times, slo))
+        out[phase] = rec
+    return out
 
 
 def measured_records(cfg: ModelConfig, ecfg: EngineConfig,

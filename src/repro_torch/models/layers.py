@@ -1,10 +1,9 @@
-"""Layer library: attention, dense MLP and MoE (port of
+"""Layer library: norms, RoPE, attention, MLP, MoE, Mamba, xLSTM (port of
 ``repro.models.layers``).
 
 Pure functions on tensors; parameters are dicts of tensors described by
 TensorSpec trees (see spec.py), in the reference's layouts (``wq [d,h,hd]``,
-``wo [h,hd,d]``, experts ``w1 [e,d,f]``). Mamba and xLSTM are not ported
-yet (ROADMAP).
+``wo [h,hd,d]``, experts ``w1 [e,d,f]``, Mamba ``w_in [d,2*di]``).
 """
 from __future__ import annotations
 
@@ -14,7 +13,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MambaConfig, ModelConfig, XLSTMConfig
 from repro_torch.models.spec import TensorSpec
 
 Params = dict[str, Any]
@@ -321,3 +320,320 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor):
         y = y + torch.gather(
             contrib, 2, by_id[..., j, None, None].expand(b, s, 1, d))[:, :, 0]
     return y, aux
+
+
+# ---------------------------------------------------------------------------
+# Mamba (selective SSM, Mamba-1 style with chunked parallel scan)
+# ---------------------------------------------------------------------------
+
+
+def _mamba_dims(cfg: ModelConfig) -> tuple[int, int, int, int]:
+    mc = cfg.mamba or MambaConfig()
+    di = mc.expand * cfg.d_model
+    dtr = max(1, cfg.d_model // 16)
+    return di, mc.d_state, mc.d_conv, dtr
+
+
+def mamba_spec(cfg: ModelConfig) -> Params:
+    d = cfg.d_model
+    di, ds, dc, dtr = _mamba_dims(cfg)
+    return {
+        "w_in": TensorSpec((d, 2 * di), ("fsdp", "mlp")),
+        "conv_w": TensorSpec((dc, di), ("conv", "mlp")),
+        "conv_b": TensorSpec((di,), ("mlp",), init="zeros"),
+        "w_x": TensorSpec((di, dtr + 2 * ds), ("mlp", None)),
+        "w_dt": TensorSpec((dtr, di), (None, "mlp")),
+        "dt_bias": TensorSpec((di,), ("mlp",), init="zeros"),
+        "a_log": TensorSpec((di, ds), ("mlp", None), init="zeros"),
+        "d_skip": TensorSpec((di,), ("mlp",), init="ones"),
+        "w_out": TensorSpec((di, d), ("mlp", "fsdp")),
+    }
+
+
+def _mamba_gates(cfg: ModelConfig, p: Params, xz: torch.Tensor):
+    """The input projection. xz: [B,S,D] -> (x_in, z), each [B,S,di]."""
+    proj = torch.einsum("bsd,de->bse", xz, p["w_in"])
+    x_in, z = proj.chunk(2, dim=-1)
+    return x_in, z
+
+
+def _causal_conv(x_in: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: torch.Tensor | None):
+    """Depthwise causal conv. x_in [B,S,di], w [dc,di]. state [B,dc-1,di].
+    Taps are summed in the reference's order, in the input's dtype."""
+    dc = w.shape[0]
+    if state is None:
+        pad = torch.zeros((x_in.shape[0], dc - 1, x_in.shape[2]),
+                          dtype=x_in.dtype, device=x_in.device)
+    else:
+        pad = state.to(x_in.dtype)
+    xp = torch.cat([pad, x_in], dim=1)              # [B, S+dc-1, di]
+    s = x_in.shape[1]
+    out = sum(xp[:, i:i + s, :] * w[i] for i in range(dc))
+    new_state = xp[:, xp.shape[1] - (dc - 1):, :] if dc > 1 else pad[:, :0]
+    return out + b, new_state
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """Merge along dim 1: even[0], odd[0], even[1], ... (len(even) is
+    len(odd) or one more)."""
+    n = odd.shape[1]
+    both = torch.stack([even[:, :n], odd], dim=2).flatten(1, 2)
+    return torch.cat([both, even[:, n:]], dim=1)
+
+
+def associative_scan(combine, elems: tuple[torch.Tensor, ...]):
+    """Inclusive scan along dim 1 with ``jax.lax.associative_scan``'s
+    combination tree (pairs reduced, the odd prefix scanned recursively,
+    the even prefix filled in): log-depth, and each element is combined in
+    the reference's order."""
+    n = elems[0].shape[1]
+    if n < 2:
+        return elems
+    reduced = combine(tuple(e[:, 0:n - 1:2] for e in elems),
+                      tuple(e[:, 1::2] for e in elems))
+    odd = associative_scan(combine, reduced)
+    if n % 2 == 0:
+        even = combine(tuple(o[:, :-1] for o in odd),
+                       tuple(e[:, 2::2] for e in elems))
+    else:
+        even = combine(odd, tuple(e[:, 2::2] for e in elems))
+    even = tuple(torch.cat([e[:, :1], r], dim=1) for e, r in zip(elems, even))
+    return tuple(_interleave(e, o) for e, o in zip(even, odd))
+
+
+def _ssm_combine(lhs, rhs):
+    a1, b1 = lhs
+    a2, b2 = rhs
+    return a1 * a2, b1 * a2 + b2
+
+
+def apply_mamba_seq(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                    chunk: int = 32):
+    """Full-sequence selective scan (prefill). Returns (y, final_state).
+
+    Chunked, in fp32: within a chunk, an associative (log-step) scan
+    materializes h per position ([B,Q,di,ds]); across chunks a loop carries
+    h."""
+    b, s, d = x.shape
+    di, ds, dc, dtr = _mamba_dims(cfg)
+    x_in, z = _mamba_gates(cfg, p, x)
+    x_conv, conv_state = _causal_conv(x_in, p["conv_w"], p["conv_b"], None)
+    x_conv = F.silu(x_conv)
+    xdb = torch.einsum("bsi,ie->bse", x_conv, p["w_x"])
+    dt_raw, bmat, cmat = torch.split(xdb, [dtr, ds, ds], dim=-1)
+    dt = F.softplus(torch.einsum("bsr,ri->bsi", dt_raw, p["w_dt"])
+                    + p["dt_bias"]).float()                   # [B,S,di]
+    a = -torch.exp(p["a_log"].float())                         # [di,ds]
+    u = dt * x_conv.float()                                    # [B,S,di]
+    bmat, cmat = bmat.float(), cmat.float()
+
+    chunk = min(chunk, s)
+    nc = (s + chunk - 1) // chunk
+    pad = nc * chunk - s
+    if pad:
+        dt, u, bmat, cmat = (F.pad(t, (0, 0, 0, pad))
+                             for t in (dt, u, bmat, cmat))
+
+    h = torch.zeros((b, di, ds), dtype=torch.float32, device=x.device)
+    ys = []
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        decay = torch.exp(dt[:, sl, :, None] * a)             # [B,Q,di,ds]
+        inp = u[:, sl, :, None] * bmat[:, sl, None, :]         # [B,Q,di,ds]
+        dec_cum, h_all = associative_scan(_ssm_combine, (decay, inp))
+        h_all = h_all + dec_cum * h[:, None]                   # carry-in
+        ys.append(torch.einsum("bqis,bqs->bqi", h_all, cmat[:, sl]))
+        h = h_all[:, -1]
+    y = torch.cat(ys, dim=1)[:, :s]
+    y = y + p["d_skip"].float() * x_conv.float()
+    y = (y * F.silu(z.float())).to(x.dtype)
+    out = torch.einsum("bsi,id->bsd", y, p["w_out"])
+    return out, {"conv": conv_state, "ssm": h}
+
+
+def apply_mamba_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                       cache: Params):
+    """Single-token step. x: [B,1,D]; cache {conv [B,dc-1,di], ssm [B,di,ds]}."""
+    di, ds, dc, dtr = _mamba_dims(cfg)
+    x_in, z = _mamba_gates(cfg, p, x)
+    x_conv, conv_state = _causal_conv(x_in, p["conv_w"], p["conv_b"],
+                                      cache["conv"])
+    x_conv = F.silu(x_conv)
+    xdb = torch.einsum("bsi,ie->bse", x_conv, p["w_x"])
+    dt_raw, bmat, cmat = torch.split(xdb, [dtr, ds, ds], dim=-1)
+    dt = F.softplus(torch.einsum("bsr,ri->bsi", dt_raw, p["w_dt"])
+                    + p["dt_bias"]).float()[:, 0]             # [B,di]
+    a = -torch.exp(p["a_log"].float())
+    decay = torch.exp(dt[..., None] * a)                       # [B,di,ds]
+    u = dt * x_conv[:, 0].float()                              # [B,di]
+    h = cache["ssm"] * decay + u[..., None] * bmat[:, 0, None, :].float()
+    y = torch.einsum("bis,bs->bi", h, cmat[:, 0].float())
+    y = y + p["d_skip"].float() * x_conv[:, 0].float()
+    y = (y * F.silu(z[:, 0].float())).to(x.dtype)
+    out = torch.einsum("bi,id->bd", y, p["w_out"])[:, None]
+    return out, {"conv": conv_state, "ssm": h}
+
+
+def mamba_cache_spec(cfg: ModelConfig, batch: int) -> Params:
+    di, ds, dc, _ = _mamba_dims(cfg)
+    return {
+        "conv": TensorSpec((batch, dc - 1, di), ("batch", None, "mlp"),
+                           dtype=torch.bfloat16, init="zeros"),
+        "ssm": TensorSpec((batch, di, ds), ("batch", "mlp", None),
+                          dtype=torch.float32, init="zeros"),
+    }
+
+
+# ---------------------------------------------------------------------------
+# xLSTM: mLSTM (matrix memory) + sLSTM (scalar memory), sequential loops
+# over positions, as the reference's lax.scan
+# ---------------------------------------------------------------------------
+
+
+def _mlstm_dims(cfg: ModelConfig) -> tuple[int, int, int]:
+    h = cfg.num_heads
+    xc = cfg.xlstm or XLSTMConfig()
+    di = int(xc.proj_factor_mlstm * cfg.d_model)
+    return h, di, di // h
+
+
+def mlstm_spec(cfg: ModelConfig) -> Params:
+    d = cfg.d_model
+    h, di, dh = _mlstm_dims(cfg)
+    return {
+        "w_up": TensorSpec((d, 2 * di), ("fsdp", "mlp")),
+        "wq": TensorSpec((di, h, dh), ("mlp", "heads", None)),
+        "wk": TensorSpec((di, h, dh), ("mlp", "heads", None)),
+        "wv": TensorSpec((di, h, dh), ("mlp", "heads", None)),
+        "w_gates": TensorSpec((di, 2 * h), ("mlp", None)),  # i, f pre-acts
+        "w_down": TensorSpec((di, d), ("mlp", "fsdp")),
+    }
+
+
+def _mlstm_step(q, k, v, i_pre, f_pre, state):
+    """One mLSTM step (stabilized exponential gating, fp32).
+
+    q/k/v: [B,H,dh]; i_pre/f_pre: [B,H]; state: dict(C [B,H,dh,dh],
+    n [B,H,dh], m [B,H]).
+    """
+    logf = F.logsigmoid(f_pre)
+    m_new = torch.maximum(logf + state["m"], i_pre)
+    fgate = torch.exp(logf + state["m"] - m_new)
+    igate = torch.exp(i_pre - m_new)
+    c = state["C"] * fgate[..., None, None] + \
+        igate[..., None, None] * (k[..., :, None] * v[..., None, :])
+    n = state["n"] * fgate[..., None] + igate[..., None] * k
+    num = torch.einsum("bhkv,bhk->bhv", c, q)
+    den = torch.clamp(torch.einsum("bhk,bhk->bh", n, q).abs(), min=1.0)
+    return num / den[..., None], {"C": c, "n": n, "m": m_new}
+
+
+def _mlstm_inputs(p: Params, xi: torch.Tensor, dh: int):
+    """q, k (scaled by 1/sqrt(dh) in the activation dtype), v and the gate
+    pre-activations, in fp32, from the up-projected input [..., di]."""
+    q = torch.einsum("...i,ihk->...hk", xi, p["wq"]).float()
+    k = (torch.einsum("...i,ihk->...hk", xi, p["wk"])
+         / math.sqrt(dh)).float()
+    v = torch.einsum("...i,ihk->...hk", xi, p["wv"]).float()
+    gates = torch.einsum("...i,ig->...g", xi, p["w_gates"]).float()
+    i_pre, f_pre = gates.chunk(2, dim=-1)
+    return q, k, v, i_pre, f_pre
+
+
+def apply_mlstm_seq(cfg: ModelConfig, p: Params, x: torch.Tensor):
+    b, s, d = x.shape
+    h, di, dh = _mlstm_dims(cfg)
+    up = torch.einsum("bsd,de->bse", x, p["w_up"])
+    xi, z = up.chunk(2, dim=-1)
+    q, k, v, i_pre, f_pre = _mlstm_inputs(p, xi, dh)
+    state = {
+        "C": torch.zeros((b, h, dh, dh), dtype=torch.float32, device=x.device),
+        "n": torch.zeros((b, h, dh), dtype=torch.float32, device=x.device),
+        "m": torch.zeros((b, h), dtype=torch.float32, device=x.device),
+    }
+    ys = []
+    for t in range(s):
+        yt, state = _mlstm_step(q[:, t], k[:, t], v[:, t], i_pre[:, t],
+                                f_pre[:, t], state)
+        ys.append(yt)
+    y = torch.stack(ys, dim=1).reshape(b, s, di).to(x.dtype)
+    y = y * F.silu(z)
+    return torch.einsum("bsi,id->bsd", y, p["w_down"]), state
+
+
+def apply_mlstm_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                       cache: Params):
+    b = x.shape[0]
+    h, di, dh = _mlstm_dims(cfg)
+    up = torch.einsum("bsd,de->bse", x, p["w_up"])
+    xi, z = up.chunk(2, dim=-1)
+    q, k, v, i_pre, f_pre = _mlstm_inputs(p, xi[:, 0], dh)
+    y, state = _mlstm_step(q, k, v, i_pre, f_pre, cache)
+    y = y.reshape(b, 1, di).to(x.dtype) * F.silu(z)
+    return torch.einsum("bsi,id->bsd", y, p["w_down"]), state
+
+
+def mlstm_cache_spec(cfg: ModelConfig, batch: int) -> Params:
+    h, di, dh = _mlstm_dims(cfg)
+    f32 = torch.float32
+    return {
+        "C": TensorSpec((batch, h, dh, dh), ("batch", "heads", None, None),
+                        dtype=f32, init="zeros"),
+        "n": TensorSpec((batch, h, dh), ("batch", "heads", None),
+                        dtype=f32, init="zeros"),
+        "m": TensorSpec((batch, h), ("batch", "heads"), dtype=f32,
+                        init="zeros"),
+    }
+
+
+def slstm_spec(cfg: ModelConfig) -> Params:
+    d = cfg.d_model
+    return {
+        "w_x": TensorSpec((d, 4 * d), ("fsdp", "mlp")),   # i,f,z,o from input
+        "w_h": TensorSpec((d, 4 * d), (None, "mlp")),     # recurrent
+        "b": TensorSpec((4 * d,), ("mlp",), init="zeros"),
+    }
+
+
+def _slstm_step(pre, state):
+    """pre: [B,4D] (input plus recurrent contribution, fp32); state: c, n,
+    h, m each [B,D]."""
+    it, ft, zt, ot = pre.chunk(4, dim=-1)
+    logf = F.logsigmoid(ft)
+    m_new = torch.maximum(logf + state["m"], it)
+    ig = torch.exp(it - m_new)
+    fg = torch.exp(logf + state["m"] - m_new)
+    c = fg * state["c"] + ig * torch.tanh(zt)
+    n = fg * state["n"] + ig
+    hh = torch.sigmoid(ot) * c / torch.clamp(n, min=1.0)
+    return hh, {"c": c, "n": n, "h": hh, "m": m_new}
+
+
+def apply_slstm_seq(cfg: ModelConfig, p: Params, x: torch.Tensor):
+    b, s, d = x.shape
+    xpre = torch.einsum("bsd,de->bse", x, p["w_x"]) + p["b"]
+    w_h = p["w_h"].float()
+    state = {k: torch.zeros((b, d), dtype=torch.float32, device=x.device)
+             for k in ("c", "n", "h", "m")}
+    ys = []
+    for t in range(s):
+        pre = xpre[:, t].float() + torch.einsum("bd,de->be", state["h"], w_h)
+        hh, state = _slstm_step(pre, state)
+        ys.append(hh)
+    return torch.stack(ys, dim=1).to(x.dtype), state
+
+
+def apply_slstm_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                       cache: Params):
+    xpre = torch.einsum("bd,de->be", x[:, 0], p["w_x"]) + p["b"]
+    pre = xpre.float() + torch.einsum("bd,de->be", cache["h"],
+                                      p["w_h"].float())
+    hh, state = _slstm_step(pre, cache)
+    return hh[:, None].to(x.dtype), state
+
+
+def slstm_cache_spec(cfg: ModelConfig, batch: int) -> Params:
+    d = cfg.d_model
+    return {k: TensorSpec((batch, d), ("batch", None), dtype=torch.float32,
+                          init="zeros") for k in ("c", "n", "h", "m")}

@@ -1,11 +1,13 @@
-"""Transformer stack assembly for attention decoders with dense or MoE
-MLPs (port of ``repro.models.transformer``).
+"""Transformer stack assembly (port of ``repro.models.transformer``):
+attention, Mamba, mLSTM and sLSTM mixers, dense or MoE MLPs, and the
+encoder with the decoder's cross attention.
 
 The layer stack is organized by the config's repeating *pattern* of P block
-kinds; parameters for pattern position j are stacked over the R =
-num_layers / P repetitions (``[R, ...]`` leaves, as in the reference). The
-reference's ``lax.scan`` over R becomes a Python loop over units — the same
-scan unit the memory manager re-groups into offloading intervals.
+kinds (P=1 for homogeneous models, 8 for jamba, 2 for xlstm); parameters
+for pattern position j are stacked over the R = num_layers / P repetitions
+(``[R, ...]`` leaves, as in the reference). The reference's ``lax.scan``
+over R becomes a Python loop over units — the same scan unit the memory
+manager re-groups into offloading intervals.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.spec import TensorSpec, tree_map, tree_map_spec
+from repro_torch.models.spec import (TensorSpec, tree_leaves, tree_map,
+                                     tree_map_spec)
 
 Params = dict[str, Any]
 
@@ -27,13 +30,16 @@ Params = dict[str, Any]
 # ---------------------------------------------------------------------------
 
 
+_MIXER_SPECS = {"attention": L.attn_spec, "mamba": L.mamba_spec,
+                "mlstm": L.mlstm_spec, "slstm": L.slstm_spec}
+
+
 def block_spec(cfg: ModelConfig, blk: BlockSpec, cross: bool = False) -> Params:
-    if blk.mixer != "attention" or cross:
-        raise NotImplementedError(
-            f"mixer {blk.mixer!r} (cross={cross}) is not ported yet: the "
-            "recurrent mixers and encoder cross-attention are ROADMAP Queue A "
-            "item 9")
-    spec: Params = {"norm1": L.norm_spec(cfg), "attn": L.attn_spec(cfg)}
+    spec: Params = {"norm1": L.norm_spec(cfg),
+                    "attn": _MIXER_SPECS[blk.mixer](cfg)}
+    if cross:
+        spec["norm_cross"] = L.norm_spec(cfg)
+        spec["cross"] = L.attn_spec(cfg)
     if cfg.d_ff > 0:
         spec["norm2"] = L.norm_spec(cfg)
         spec["mlp"] = L.moe_spec(cfg) if blk.mlp == "moe" else L.mlp_spec(cfg)
@@ -47,25 +53,36 @@ def pattern_info(cfg: ModelConfig) -> tuple[int, int]:
     return p, cfg.num_layers // p
 
 
-def decoder_stack_spec(cfg: ModelConfig) -> list[Params]:
+def decoder_stack_spec(cfg: ModelConfig, cross: bool = False) -> list[Params]:
     p, r = pattern_info(cfg)
-    return [tree_map_spec(lambda s: s.stacked(r), block_spec(cfg, blk))
+    return [tree_map_spec(lambda s: s.stacked(r),
+                          block_spec(cfg, blk, cross=cross))
             for blk in cfg.pattern]
 
 
+ENCODER_BLOCK = BlockSpec(mixer="attention", mlp="dense")
+
+
+def encoder_stack_spec(cfg: ModelConfig) -> list[Params]:
+    bs = block_spec(cfg, ENCODER_BLOCK)
+    return [tree_map_spec(lambda s: s.stacked(cfg.encoder_layers), bs)]
+
+
 def model_spec(cfg: ModelConfig) -> Params:
-    if cfg.encoder_layers > 0:
-        raise NotImplementedError("encoder-decoder models are ROADMAP Queue A "
-                                  "item 9")
     d = cfg.d_model
     vp = cfg.padded_vocab()
     spec: Params = {
         "embed": TensorSpec((vp, d), ("vocab", "fsdp"), fan_in_axes=(1,)),
-        "blocks": decoder_stack_spec(cfg),
+        "blocks": decoder_stack_spec(cfg, cross=cfg.encoder_layers > 0),
         "final_norm": L.norm_spec(cfg),
     }
     if not cfg.tie_embeddings:
         spec["lm_head"] = TensorSpec((d, vp), ("fsdp", "vocab"))
+    if cfg.encoder_layers > 0:
+        spec["encoder"] = {
+            "blocks": encoder_stack_spec(cfg),
+            "final_norm": L.norm_spec(cfg),
+        }
     return spec
 
 
@@ -91,19 +108,31 @@ def attn_cache_spec(cfg: ModelConfig, batch: int, cache_len: int,
 
 def mixer_cache_spec(cfg: ModelConfig, blk: BlockSpec, batch: int,
                      cache_len: int, virtual_kv: int) -> Params:
-    if blk.mixer != "attention":
-        raise NotImplementedError(f"{blk.mixer!r} caches are ROADMAP Queue A "
-                                  "item 9")
-    clen = min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
-    return attn_cache_spec(cfg, batch, clen, virtual_kv)
+    if blk.mixer == "attention":
+        clen = min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
+        return attn_cache_spec(cfg, batch, clen, virtual_kv)
+    if blk.mixer == "mamba":
+        return L.mamba_cache_spec(cfg, batch)
+    if blk.mixer == "mlstm":
+        return L.mlstm_cache_spec(cfg, batch)
+    if blk.mixer == "slstm":
+        return L.slstm_cache_spec(cfg, batch)
+    raise ValueError(blk.mixer)
 
 
-def cache_spec(cfg: ModelConfig, batch: int, cache_len: int,
-               virtual_kv: int) -> list[Params]:
-    """Per pattern position, stacked over R."""
+def cache_spec(cfg: ModelConfig, batch: int, cache_len: int, virtual_kv: int,
+               enc_len: int = 0) -> list[Params]:
+    """Per pattern position, stacked over R. Cross caches included for encdec."""
     p, r = pattern_info(cfg)
-    return [tree_map_spec(lambda s: s.stacked(r), {"self": mixer_cache_spec(
-        cfg, blk, batch, cache_len, virtual_kv)}) for blk in cfg.pattern]
+    out = []
+    for blk in cfg.pattern:
+        cs: Params = {"self": mixer_cache_spec(cfg, blk, batch, cache_len,
+                                               virtual_kv)}
+        if cfg.encoder_layers > 0 and enc_len > 0:
+            cs["cross"] = attn_cache_spec(cfg, batch, enc_len, virtual_kv)
+            del cs["cross"]["pos"]  # cross positions are static iota
+        out.append(tree_map_spec(lambda s: s.stacked(r), cs))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -152,6 +181,8 @@ class SeqCtx:
     want_cache: bool = False
     cache_len: int = 0
     virtual_kv: int = 0
+    enc_out: torch.Tensor | None = None
+    enc_pos: torch.Tensor | None = None
     attn_impl: str = "flash"        # flash | reference (plain, dense)
 
 
@@ -179,6 +210,35 @@ def _self_attn_seq(cfg, p, x, ctx: SeqCtx):
     return y, cache
 
 
+def _cross_attn_seq(cfg, p, x, ctx: SeqCtx):
+    """Cross attention for enc-dec; enc_out already normed. The flash
+    kernel runs it non-causal, Sq decoder queries over Sk encoder keys."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    k = torch.einsum("bsd,dhk->bshk", ctx.enc_out, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", ctx.enc_out, p["wv"])
+    k = L._expand_kv(k, ctx.virtual_kv)
+    v = L._expand_kv(v, ctx.virtual_kv)
+    if ctx.attn_impl == "flash":
+        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2),
+                                causal=False).transpose(1, 2)
+    elif ctx.attn_impl == "reference":
+        o = L.attn_reference(cfg, q, k, v, ctx.positions, ctx.enc_pos,
+                             cross=True)
+    else:
+        raise ValueError(f"unknown attn_impl {ctx.attn_impl!r}")
+    return L.attn_out(cfg, p, o), {"k": k, "v": v}
+
+
+_MIXERS_SEQ = {"mamba": L.apply_mamba_seq, "mlstm": L.apply_mlstm_seq,
+               "slstm": L.apply_slstm_seq}
+_MIXERS_DECODE = {"mamba": L.apply_mamba_decode,
+                  "mlstm": L.apply_mlstm_decode,
+                  "slstm": L.apply_slstm_decode}
+
+
 def _mlp(cfg: ModelConfig, blk: BlockSpec, p: Params, x: torch.Tensor):
     """The block's MLP over its pre-norm: (y, MoE aux loss or None)."""
     h = L.apply_norm(cfg, p["norm2"], x)
@@ -190,39 +250,66 @@ def _mlp(cfg: ModelConfig, blk: BlockSpec, p: Params, x: torch.Tensor):
 def apply_block_seq(cfg: ModelConfig, blk: BlockSpec, p: Params,
                     x: torch.Tensor, ctx: SeqCtx):
     """Returns (x, cache_dict_or_None, aux_loss)."""
-    if blk.mixer != "attention":
-        raise NotImplementedError(f"mixer {blk.mixer!r}: ROADMAP Queue A "
-                                  "item 9")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.apply_norm(cfg, p["norm1"], x)
-    y, self_cache = _self_attn_seq(cfg, p["attn"], h, ctx)
+    cache: Params = {}
+    if blk.mixer == "attention":
+        y, cache["self"] = _self_attn_seq(cfg, p["attn"], h, ctx)
+    else:
+        y, cache["self"] = _MIXERS_SEQ[blk.mixer](cfg, p["attn"], h)
     x = x + y
+    if "cross" in p:
+        h = L.apply_norm(cfg, p["norm_cross"], x)
+        y, cache["cross"] = _cross_attn_seq(cfg, p["cross"], h, ctx)
+        x = x + y
     if cfg.d_ff > 0:
         y, a = _mlp(cfg, blk, p, x)
         x = x + y
         if a is not None:
             aux = aux + a
-    return x, ({"self": self_cache} if ctx.want_cache else None), aux
+    return x, (cache if ctx.want_cache else None), aux
+
+
+def _self_attn_decode(cfg, p, x, pos, cache, virtual_kv):
+    q, k1, v1 = L.qkv_project(cfg, p, x, pos[:, None], virtual_kv)
+    ck, cv, cpos = cache_write_decode(
+        cache["k"], cache["v"], cache["pos"], k1, v1, pos)
+    o = L.attn_reference(cfg, q, ck, cv, pos[:, None], cpos,
+                         window=cfg.sliding_window)
+    return L.attn_out(cfg, p, o), {"k": ck, "v": cv, "pos": cpos}
+
+
+def _cross_attn_decode(cfg, p, x, pos, cache, enc_pos):
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    o = L.attn_reference(cfg, q, cache["k"], cache["v"], pos[:, None],
+                         enc_pos, cross=True)
+    return L.attn_out(cfg, p, o), cache
 
 
 def apply_block_decode(cfg: ModelConfig, blk: BlockSpec, p: Params,
                        x: torch.Tensor, pos: torch.Tensor, cache: Params,
-                       virtual_kv: int):
+                       virtual_kv: int, enc_pos: torch.Tensor | None = None):
     """Dense-cache decode (the oracle path). x: [B,1,D]; pos: [B].
     Returns (x, new_cache)."""
-    if blk.mixer != "attention":
-        raise NotImplementedError(f"mixer {blk.mixer!r}: ROADMAP Queue A "
-                                  "item 9")
     h = L.apply_norm(cfg, p["norm1"], x)
-    q, k1, v1 = L.qkv_project(cfg, p["attn"], h, pos[:, None], virtual_kv)
-    c = cache["self"]
-    ck, cv, cpos = cache_write_decode(c["k"], c["v"], c["pos"], k1, v1, pos)
-    o = L.attn_reference(cfg, q, ck, cv, pos[:, None], cpos,
-                         window=cfg.sliding_window)
-    x = x + L.attn_out(cfg, p["attn"], o)
+    new_cache: Params = {}
+    if blk.mixer == "attention":
+        y, new_cache["self"] = _self_attn_decode(
+            cfg, p["attn"], h, pos, cache["self"], virtual_kv)
+    else:
+        y, new_cache["self"] = _MIXERS_DECODE[blk.mixer](
+            cfg, p["attn"], h, cache["self"])
+    x = x + y
+    if "cross" in p:
+        h = L.apply_norm(cfg, p["norm_cross"], x)
+        y, new_cache["cross"] = _cross_attn_decode(
+            cfg, p["cross"], h, pos, cache["cross"], enc_pos)
+        x = x + y
     if cfg.d_ff > 0:
         x = x + _mlp(cfg, blk, p, x)[0]
-    return x, {"self": {"k": ck, "v": cv, "pos": cpos}}
+    return x, new_cache
 
 
 def apply_block_decode_paged(cfg: ModelConfig, blk: BlockSpec, p: Params,
@@ -309,15 +396,17 @@ def unit_slice(blocks: Any, r: int) -> Any:
 
 
 def apply_stack_seq(cfg: ModelConfig, blocks: list[Params], x: torch.Tensor,
-                    ctx: SeqCtx):
+                    ctx: SeqCtx, pattern: tuple[BlockSpec, ...] | None = None):
     """Returns (x, caches_or_None, total_aux); caches are stacked [R, ...]
-    per pattern position, as the reference's scan returns them."""
-    _, r = pattern_info(cfg)
+    per pattern position, as the reference's scan returns them. R is the
+    blocks' leading dim (the encoder's stack has its own)."""
+    pattern = pattern if pattern is not None else cfg.pattern
+    r = tree_leaves(blocks)[0].shape[0]
     per_unit, aux = [], torch.zeros((), dtype=torch.float32, device=x.device)
     for u in range(r):
         ps = unit_slice(blocks, u)
         caches = []
-        for j, blk in enumerate(cfg.pattern):
+        for j, blk in enumerate(pattern):
             x, c, a = apply_block_seq(cfg, blk, ps[j], x, ctx)
             caches.append(c)
             aux = aux + a
@@ -329,15 +418,18 @@ def apply_stack_seq(cfg: ModelConfig, blocks: list[Params], x: torch.Tensor,
 
 def apply_stack_decode(cfg: ModelConfig, blocks: list[Params],
                        x: torch.Tensor, pos: torch.Tensor,
-                       caches: list[Params], virtual_kv: int):
-    _, r = pattern_info(cfg)
+                       caches: list[Params], virtual_kv: int,
+                       enc_pos: torch.Tensor | None = None,
+                       pattern: tuple[BlockSpec, ...] | None = None):
+    pattern = pattern if pattern is not None else cfg.pattern
+    r = tree_leaves(blocks)[0].shape[0]
     new_units = []
     for u in range(r):
         ps, cs = unit_slice(blocks, u), unit_slice(caches, u)
         new = []
-        for j, blk in enumerate(cfg.pattern):
+        for j, blk in enumerate(pattern):
             x, nc = apply_block_decode(cfg, blk, ps[j], x, pos, cs[j],
-                                       virtual_kv)
+                                       virtual_kv, enc_pos)
             new.append(nc)
         new_units.append(new)
     return x, tree_map(lambda *xs: torch.stack(xs), *new_units)

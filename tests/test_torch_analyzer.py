@@ -357,6 +357,28 @@ def test_measured_records_and_slo(monkeypatch):
     assert slo >= 8 * 0.02
 
 
+def test_relinked_records_rebuild_the_measured_records(monkeypatch):
+    """``relinked_records`` (the second walk set's refit) rebuilds the
+    wall-clock records from the unit times they measured: with the same
+    link it gives the same tables, with another link the tables that
+    measuring again against that link gives, and nothing is timed."""
+    cfg, ecfg = _small_config()
+    monkeypatch.setattr(A, "_time_fn", _stub([]))
+    records, measured = P.measured_records(cfg, ecfg, H100_CALIBRATED,
+                                           device="cpu")
+    slow = dataclasses.replace(H100_CALIBRATED, host_link_bw=1e6)
+    monkeypatch.setattr(A, "_time_fn", _stub([]))   # the same unit times
+    want, _ = P.measured_records(cfg, ecfg, slow, device="cpu")
+    monkeypatch.setattr(A, "_time_fn", None)        # nothing timed again
+    for hw, expect in ((H100_CALIBRATED, records), (slow, want)):
+        got = P.relinked_records(cfg, ecfg, measured, hw)
+        for phase in ("prefill", "decode"):
+            assert (got[phase].measure, got[phase].hardware) == (
+                "wallclock", hw.name)
+            assert got[phase].table == expect[phase].table, phase
+    assert want["decode"].table != records["decode"].table
+
+
 def test_measured_tpot_slo_needs_an_interval_ceiling():
     cfg, ecfg = _small_config()
     rec = A.PerformanceAnalyzer(cfg, H100_CALIBRATED, measure="model"

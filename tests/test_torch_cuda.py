@@ -120,6 +120,12 @@ def test_decode_kernel_bitwise_repeatable_and_batch_independent(cuda):
     (1, 4, 1, 40, 300, 64, {"pos_offset": -100}),   # decode-style offset
     (1, 4, 2, 130, 130, 128, {"kv_len": 90}),       # causal with kv_len
     (1, 48, 8, 1024, 1024, 128, {}),    # dbrx-132b's bucketed prefill, g 6
+    # head_dim 256 (gemma-2b, paligemma-3b): MQA at g 8, 32-key tiles
+    (1, 8, 1, 512, 512, 256, {}),       # gemma's bucketed prefill
+    (2, 8, 1, 300, 300, 256, {"window": 70}),
+    (2, 8, 1, 64, 1024, 256, {"causal": False}),  # cross attention, Sq < Sk
+    (1, 8, 1, 130, 130, 256, {"kv_len": 90}),
+    (1, 16, 16, 70, 150, 256, {"causal": False, "kv_len": 129}),
 ])
 def test_flash_kernel_matches_plain(cuda, b, h, vh, sq, sk, d, kw):
     rng = np.random.default_rng(1)
@@ -134,7 +140,7 @@ def test_flash_kernel_matches_plain(cuda, b, h, vh, sq, sk, d, kw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 def test_flash_kernel_reads_strided_projections(cuda, d):
     """The prefill passes [B,S,H,D] projections viewed as [B,H,S,D]; the
     kernel reads them through their strides, ragged lengths included."""
@@ -180,6 +186,8 @@ CHUNK_CASES = [
     (50, 6, 2, 32, 16, 40, 500, 550),    # g 3: padding rows in every tile
     (200, 4, 4, 16, 16, 40, 300, 500),   # g 1, 64 tokens per tile, 2 spans
     (256, 48, 8, 128, 16, 64, 768, 1024),  # dbrx-132b's heads, g 6
+    (256, 8, 1, 256, 16, 64, 768, 1024),   # gemma-2b's: D 256, g 8
+    (77, 8, 1, 256, 16, 40, 512, 589),     # D 256, partial final chunk
 ]
 
 
@@ -216,7 +224,7 @@ def _chunk_inputs(rng, dev, c, h, vh, d, page, nb, layers=4):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("h,vh", [(2, 2), (8, 2), (16, 2), (32, 2)])
 def test_chunk_kernel_head_dims_and_groups(cuda, d, h, vh):
     """g = H / V in {1, 4, 8, 16} and every head dim, over a context that

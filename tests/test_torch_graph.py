@@ -30,7 +30,7 @@ from repro_torch.kernels import decode_attention as DA  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.launch.serve import build_engine  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
-from repro_torch.models.spec import tree_leaves  # noqa: E402
+from repro_torch.models.spec import tree_leaves, tree_map  # noqa: E402
 from repro_torch.models.transformer import pattern_info  # noqa: E402
 from repro_torch.serving.engine import EngineConfig  # noqa: E402
 from repro_torch.serving.request import Request  # noqa: E402
@@ -364,3 +364,101 @@ def test_placement_link_times_the_engines_own_stack(cuda):
     assert eng.set_interval(4)
     eng.run([])
     assert eng._rt()[0] is rt and eng.prefetch_copies > 0
+
+
+# ---------------------------------------------------------------------------
+# The dense-cache grouped decode (every model family) as a graph
+# ---------------------------------------------------------------------------
+
+FAMILY_LAYERS = {"jamba-1.5-large-398b": 16, "xlstm-125m": 4,
+                 "seamless-m4t-medium": 4, "paligemma-3b": 4}
+
+
+def _family_prefilled(arch, interval, dev, batch=2, seq=12):
+    """A reduced model of ``arch`` placed at ``interval`` on ``dev``, and
+    its prefill's split caches, encoder positions and next inputs."""
+    from repro_torch.core.memory_manager import (OffloadRuntime,
+                                                 split_model_params)
+    from repro_torch.models.frontends import stub_embeddings
+
+    cfg = reduce_config(get_config(arch), d_model=128, heads=4,
+                        layers=FAMILY_LAYERS[arch], d_ff=256, vocab=512)
+    model = build_model(cfg)
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(gen, "cpu")
+    _, units = pattern_info(cfg)
+    rt = OffloadRuntime(model, OffloadPlan(units, interval), dev)
+    placed = rt.place(split_model_params(params, rt.plan))
+    inputs, n_front = {}, 0
+    if cfg.encoder_layers:
+        inputs["enc_embeds"] = stub_embeddings(cfg, batch, 2 * seq, gen,
+                                               "cpu").to(dev)
+    elif cfg.frontend is not None:
+        n_front = cfg.frontend.num_positions
+        inputs["frontend_embeds"] = stub_embeddings(cfg, batch, n_front, gen,
+                                                    "cpu").to(dev)
+    inputs["tokens"] = torch.randint(0, cfg.vocab_size,
+                                     (batch, seq - n_front), generator=gen
+                                     ).to(dev)
+    logits, caches, enc_pos = rt.prefill(placed, inputs, seq + 4)
+    tok = logits.argmax(-1).to(torch.int32)
+    pos = torch.full((batch,), seq, dtype=torch.int32, device=dev)
+    return rt, placed, caches, enc_pos, tok, pos
+
+
+def _replay_against_eager(rt, placed, caches, enc_pos, tok, pos, steps=3):
+    """Capture the dense decode step over ``caches``, then step an eager
+    copy and the graph side by side: logits, every cache leaf and the
+    prefetch copies per step (one per group on a GPU, none on the CPU)
+    must agree."""
+    eager = tree_map(torch.clone, caches)
+    g_tok, g_pos = tok.clone(), pos.clone()
+    g = rt.capture_decode(placed, g_tok, g_pos, caches, enc_pos)
+    for a, b in zip(tree_leaves(caches), tree_leaves(eager)):
+        assert torch.equal(a, b)            # the warm-up call was undone
+    per_step = rt.plan.num_groups if rt._stream is not None else 0
+    for _ in range(steps):
+        c0 = rt.prefetch_copies
+        want, _ = rt.decode_step(placed, tok, pos, eager, enc_pos)
+        assert rt.prefetch_copies - c0 == per_step
+        got, same = g.replay()
+        assert same is caches
+        assert rt.prefetch_copies - c0 == 2 * per_step
+        assert torch.equal(got, want)
+        for a, b in zip(tree_leaves(caches), tree_leaves(eager)):
+            assert torch.equal(a, b)
+        tok = want.argmax(-1).to(torch.int32)
+        pos = pos + 1
+        g_tok.copy_(tok)
+        g_pos.copy_(pos)
+
+
+class WarmingStandIn(StandInGraph):
+    """``StandInGraph`` that, like ``graphs.Graphed``, calls the function
+    once when built (the capture's eager warm-up)."""
+
+    def __init__(self, fn, inputs, counters=()):
+        super().__init__(fn, inputs, counters)
+        fn(*self.inputs)
+
+
+@pytest.mark.parametrize("arch", list(FAMILY_LAYERS))
+def test_dense_decode_capture_undoes_warmup_and_replays(arch, monkeypatch):
+    """On the CPU, through a stand-in that warms up as a capture does:
+    ``capture_decode`` leaves the caches as they were, and each replay
+    advances them in place as the eager step advances a copy."""
+    monkeypatch.setattr(graphs, "Graphed", WarmingStandIn)
+    _replay_against_eager(*_family_prefilled(arch, 2, "cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(FAMILY_LAYERS))
+def test_dense_decode_replay_is_bitwise_eager(cuda, arch):
+    """On the card: the dense grouped decode captured as one CUDA graph
+    (offloaded units in pinned host memory, one prefetch copy per group on
+    the side stream) gives the eager step's logits and caches bit for bit
+    over three steps, recurrent states and cross caches included."""
+    args = _family_prefilled(arch, 2, cuda)
+    assert args[0]._stream is not None and args[0].plan.num_groups > 0
+    _replay_against_eager(*args)
+    torch.cuda.synchronize()

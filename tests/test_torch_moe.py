@@ -209,6 +209,50 @@ def test_moe_engine_config_and_its_tpot_slo():
                                    3) > slo
 
 
+def test_moe_engine_models_its_fitted_terms():
+    """The MoE engine's clock (Queue C 6 on this path): ``moe_hardware``
+    fits the compute and HBM factors to dbrx's unit times and takes the
+    placement's link, and ``moe_engine``'s records and clock run on that
+    preset with the LM-head rest fitted apart: the clock's prefill and
+    decode unit times at the calibration buckets are the times it was
+    fitted to, its rest the one ``fit_rest`` was given, its transfer the
+    link's (a reduced dbrx, placed on the CPU)."""
+    from repro_torch.core import costs
+    from repro_torch.core.interval import OffloadPlan
+    from repro_torch.launch import profile_engine as P
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import pattern_info
+    from repro_torch.serving.engine import EngineConfig, place_weights
+
+    cfg = reduce_config(get_config("dbrx-132b"), layers=4)
+    units = {"prefill": {"mean_s": 3e-3}, "decode": {"mean_s": 1e-3},
+             "rest": {"s": 2e-4, "mem_eff": P.fit_rest(cfg, 2e-4)}}
+    link = {"host_link_bw": 40e9, "host_link_latency_s": 2e-5}
+    hw = P.moe_hardware(cfg, units, link)
+    assert (hw.host_link_bw, hw.host_link_latency_s) == (40e9, 2e-5)
+    _, n = pattern_info(cfg)
+    page_bytes = P.PAGE_SIZE * costs.kv_cache_bytes(cfg, 1, 1)
+    ecfg = EngineConfig(max_batch=8, max_seq=P.MAX_SEQ,
+                        page_size=P.PAGE_SIZE,
+                        hbm_budget_bytes=OffloadPlan(n, n).device_bytes(
+                            costs.unit_weight_bytes(cfg)) + 8 * page_bytes)
+    params = P.engine_weights(cfg, "cpu")
+    rt, placed = place_weights(build_model(cfg), params, OffloadPlan(n, n),
+                               "cpu")
+    eng = P.moe_engine(cfg, ecfg, {"params": params, "runtime": rt,
+                                   "placed": placed}, hw,
+                       units["rest"]["mem_eff"], device="cpu")
+    assert eng.hw is hw and eng._rt()[0] is rt
+    for phase, want in (("prefill", 3e-3), ("decode", 1e-3)):
+        b, s = P.CALIBRATION_BUCKETS[phase]
+        t = eng.times_fn(b, s, phase)
+        assert t.t_compute_s == pytest.approx(want)
+        assert t.t_transfer_s == pytest.approx(
+            2e-5 + costs.unit_weight_bytes(cfg) / 40e9)
+    assert eng.times_fn(8, P.MAX_SEQ, "decode").t_rest_s == pytest.approx(
+        2e-4, rel=1e-2)
+
+
 @pytest.mark.parametrize("layers", [2, 4])
 def test_moe_config_streams_one_unit_at_any_depth(layers):
     """``moe_config`` holds the interval of one group at every depth, the
