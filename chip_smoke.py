@@ -107,6 +107,20 @@ Phases, each fatal on failure:
    and within 3e-2 / 6e-2 of ``Model.decode_step``; jamba's Mamba and
    attention blocks at full width (Mamba against fp32, its state across
    seq and decode).
+11. Training (``train_phase``): qwen2.5-3b at full width and depth through
+   the port's train step (batch 2 x seq 1024, remat, AdamW): the
+   gradient through the flash kernels against plain dense attention and
+   against the forward kernel with the plain backward, per leaf; 6
+   steps on one batch whose loss falls, with exactly 72 flash forward
+   launches and 36 backward calls per step, three steps twice from seed
+   0 bit for bit; at 2 layers, async checkpoints, a resume that gives the
+   next step bit for bit and microbatches 2 against 1 (loss, gradient
+   norm, first moment and change per leaf); the gradient
+   reduction over a one-rank NCCL group; and the train CLI as a
+   subprocess. The flash backward kernels are checked and timed in phase
+   2 (``check_flash_bwd``) at the training shape. Phases 4 and 8 end by
+   timing the first replays of a fresh, uploaded decode-graph capture
+   (``first_replay_probe``, Queue C 6).
 
 Prints a JSON ``kernels`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
@@ -120,6 +134,7 @@ import gc
 import io
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -672,6 +687,43 @@ def replay_profile(replay, n: int = 3) -> dict:
         "copies": len(copies),
         "copy_ms_median": statistics.median(copies) if copies else None,
         "copy_ms_max": max(copies, default=None)}
+
+
+def first_replay_probe(eng) -> dict:
+    """Queue C 6's first step after a capture, measured apart: the engine's
+    decode step captured anew on its last step's inputs (``Graphed``
+    uploads the graph at capture), its first four replays timed one by one
+    (CUDA events), beside the engine's own first and later steps. Replays
+    are raw launches: no kernel or copy counter moves. Run after a phase's
+    checks (the replays rewrite the last step's KV slots with the same
+    values)."""
+    import functools
+
+    from repro_torch.core.graphs import Graphed
+
+    rt, params = eng._rt()
+    tokens, pos, bt, cl, wf, wo = eng._step_inputs[2]
+    counters = [(rt._stream, "copies")] if rt._stream is not None else []
+    graph = Graphed(functools.partial(rt.paged_decode_step, params),
+                    (tokens, pos, eng.pool, bt, cl, wf, wo), counters)
+    ms = []
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.graph.replay()
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    steps = eng.decode_ms
+    out = {"upload_ms": (None if graph.upload_s is None
+                         else graph.upload_s * 1e3),
+           "replay_ms": ms, "first_over_rest_ms": ms[0] - max(ms[1:]),
+           "engine_steps_ms": {"first": steps[0],
+                               "later_min": min(steps[1:]),
+                               "later_max": max(steps[1:])}}
+    del graph
+    return out
 
 
 def after_run_link(eng) -> dict:
@@ -1440,6 +1492,8 @@ def measured_engine_phase(calibration: dict) -> dict:
         if len(r.generated) != r.max_new_tokens or not all(
                 0 <= t < cfg.padded_vocab() for t in r.generated):
             raise AssertionError(f"rid {r.rid}: bad tokens {r.generated}")
+    log("measured_engine_first_replay: "
+        + json.dumps(first_replay_probe(eng)))
     return {"slo": slo, "params": eng.params}
 
 
@@ -2384,6 +2438,7 @@ def moe_phase() -> dict:
             and 2 * len(block["rows_routed_apart"]) <= 8):
         raise AssertionError("the MoE block's bf16 decode output disagrees "
                              "with fp32")
+    log("moe_first_replay: " + json.dumps(first_replay_probe(eng)))
     return launches
 
 
@@ -2810,6 +2865,474 @@ def families_phase() -> dict:
     return {"flash_attention": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: training at qwen2.5-3b's full width (the flash backward kernel)
+# ---------------------------------------------------------------------------
+
+# relative bound of each backward kernel's gradient against its plain
+# version: largest |error| over the largest |value| (bf16 P and dS operands,
+# bf16 outputs; the bf16 tolerance of tests/test_kernels.py)
+BWD_TOL = 2e-2
+# qwen2.5-3b's training shape
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 6
+# per-leaf relative L2 of the 36-layer gradient through the flash kernels
+# against plain dense attention, and of the backward kernel against the
+# plain backward under the same forward: readings 0.0132-0.0363 for the
+# first and 0.0127-0.0185 for the second on one H100 (PERF.md §6)
+GRAD_REL_L2 = 0.05
+# microbatches 2 against 1 at 2 layers, one step at lr 1e-2, by relative
+# L2 per leaf: the first moment (the clipped accumulated gradient times
+# 1 - b1) and the parameters' change. Adam's first step moves each element
+# by about lr whatever its gradient's size, so the change of a leaf whose
+# elements are mostly near zero reads high: qwen's key bias read 0.476,
+# every other leaf 0.09 or less, on one H100 (PERF.md §6); a dropped
+# microbatch reads 0.97-1.04 on the CPU
+MICROBATCH_REL_L2 = {"moment": 0.1, "change": 0.6}
+
+
+def flash_fwd_with_lse(q, k, v, **kw):
+    """The forward kernel's output and the fp32 log-sum-exp it writes (the
+    backward's inputs, as ``FlashAttention`` saves them)."""
+    from repro_torch.kernels import flash_attention as FA
+
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    kw = {"causal": True, "window": 0, "kv_len": None, "pos_offset": 0, **kw}
+    return FA._flash_fwd_cuda(q, k, v, lse, **kw), lse
+
+
+def check_flash_bwd(flush: torch.Tensor) -> dict:
+    """The flash backward kernels (Delta, dK/dV, dQ) against their plain
+    version at qwen2.5-3b's training shape (B 2, H 16 over V 2, S 1024, D
+    128, causal; strided [B,S,H,D] views, as the model passes them) and
+    its window, ragged, non-causal, g 1 and D 64 cases, on the forward
+    kernel's own output and log-sum-exp; two calls bitwise equal; then
+    timed beside the plain version and autograd through
+    ``scaled_dot_product_attention`` (``enable_gqa``), the library's
+    backward of the same function."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(5)
+    b, h, vh, s, d = TRAIN_BATCH, 16, 2, TRAIN_SEQ, 128
+    mk = lambda n: torch.randn((b, s, n, d), generator=gen, device=dev).to(
+        torch.bfloat16).transpose(1, 2)
+    q, k, v, do = mk(h), mk(vh), mk(vh), mk(h)
+    cases = {"causal": (q, k, v, do, {}),
+             "window": (q, k, v, do, {"window": 200}),
+             "ragged": (q[:, :, :333], k[:, :, :333], v[:, :, :333],
+                        do[:, :, :333], {}),
+             "noncausal_kv_len": (q[:, :, :200], k, v, do[:, :, :200],
+                                  {"causal": False, "kv_len": 700}),
+             "g1": (q[:, :2, :300], k[:, :, :300], v[:, :, :300],
+                    do[:, :2, :300], {}),
+             "d64": (q[..., :64], k[..., :64], v[..., :64], do[..., :64],
+                     {"window": 70})}
+    errs, rel = [], {}
+    for name, (qq, kk, vv, dd, kw) in cases.items():
+        out, lse = flash_fwd_with_lse(qq, kk, vv, **kw)
+        got = FA.flash_attention_bwd_cuda(qq, kk, vv, out, lse, dd, **kw)
+        want = FA.flash_attention_bwd_plain(qq, kk, vv, out, lse, dd, **kw)
+        torch.cuda.synchronize()
+        for which, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+            g_, w_ = g_.float(), w_.float()
+            if not torch.isfinite(g_).all():
+                raise AssertionError(f"flash_bwd[{name}] {which}: not finite")
+            err = float((g_ - w_).abs().max())
+            rel[f"{name}.{which}"] = err / float(w_.abs().max())
+            errs.append(err)
+            if rel[f"{name}.{which}"] > BWD_TOL:
+                raise AssertionError(
+                    f"flash_bwd[{name}] {which}: |err| {err:.4g} is "
+                    f"{rel[f'{name}.{which}']:.4g} of the largest value "
+                    f"(bound {BWD_TOL})")
+    out, lse = flash_fwd_with_lse(q, k, v)
+    bwd = lambda: FA.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    first, again = bwd(), bwd()
+    if not all(torch.equal(x, y) for x, y in zip(first, again)):
+        raise AssertionError("flash_bwd: two calls differ")
+    checks = list(cases) + ["bitwise_repeat"]
+    ms = time_ms(bwd, flush=flush)
+    in_graph_ms = graph_ms(bwd, flush)
+    plain_ms = time_ms(lambda: FA.flash_attention_bwd_plain(
+        q, k, v, out, lse, do))
+    ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                             enable_gqa=True)
+    lib_ms = time_ms(lambda: torch.autograd.grad(
+        lib_out, (ql, kl, vl), do, retain_graph=True), flush=flush)
+    pairs = s * (s + 1) // 2                   # causal (q, k) pairs
+    # five products (QK^T, dO V^T, P^T dO, dS^T Q, dS K) of 2 * pairs * d
+    flops = 10 * b * h * pairs * d
+    nbytes = 2 * (3 * q.numel() + 2 * (k.numel() + v.numel())
+                  + do.numel()) + 4 * b * h * s
+    bound_ms, bound_by = bound(nbytes, flops)
+    log(f"flash_bwd: B={b} H={h} V={vh} S={s} D={d} causal checks={checks} "
+        f"max_abs_err={max(errs):.3g} rel_err={json.dumps(rel)} "
+        f"ms={ms:.4f} graph_ms={in_graph_ms:.4f} plain_ms={plain_ms:.4f} "
+        f"sdpa_bwd_ms={lib_ms:.4f} (kernel / sdpa {ms / lib_ms:.3f}) "
+        f"bound_ms={bound_ms:.5f} ({bound_by})")
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:79",
+            "max_abs_err": max(errs), "ms": ms, "graph_ms": in_graph_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms, "check": "pass", "checks": checks}
+
+
+def _grads(model, params, batch, attn_impl: str):
+    """(loss, gradients by checkpoint key) of ``Model.loss_fn`` with remat,
+    the train step's own differentiation, without an update."""
+    from repro_torch.ft.checkpoint import _flatten
+    from repro_torch.models.spec import tree_leaves, tree_map
+
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    it = iter(leaves)
+    loss, _ = model.loss_fn(tree_map(lambda _: next(it), params), batch,
+                            remat=True, attn_impl=attn_impl)
+    it = iter(torch.autograd.grad(loss, leaves))
+    return loss.detach(), _flatten(tree_map(lambda _: next(it), params))
+
+
+@contextlib.contextmanager
+def _plain_flash_backward():
+    """``FlashAttention``'s backward through its plain version on the
+    card's tensors, the forward still the kernel: the pass that splits the
+    kernels' gradient error between the forward and the backward."""
+    from repro_torch.kernels import flash_attention as FA
+
+    kernel = FA.flash_attention_bwd_cuda
+    FA.flash_attention_bwd_cuda = FA.flash_attention_bwd_plain
+    try:
+        yield
+    finally:
+        FA.flash_attention_bwd_cuda = kernel
+
+
+def _leaf_rel_l2(got: dict, want: dict) -> dict:
+    return {n: float((got[n].float() - want[n].float()).norm()
+                     / want[n].float().norm()) for n in want}
+
+
+def _train_steps(step, params, opt, batch, n: int, counters=None) -> dict:
+    """``n`` train steps on one batch: losses, step ms (host clock to a
+    synchronize), and the flash launches each step made."""
+    from repro_torch.ft.watchdog import StepWatchdog, WatchdogConfig
+    from repro_torch.kernels import flash_attention as FA
+
+    wd = StepWatchdog(WatchdogConfig())
+    losses, ms, per_step = [], [], []
+    for _ in range(n):
+        fa, fb = FA.launches, FA.launches_bwd
+        torch.cuda.synchronize()
+        wd.start()
+        params, opt, m = step(params, opt, batch)
+        loss = float(m["loss"])
+        ms.append(wd.stop() * 1e3)
+        losses.append(loss)
+        per_step.append((FA.launches - fa, FA.launches_bwd - fb))
+    return {"params": params, "opt": opt, "losses": losses, "ms": ms,
+            "launches_per_step": per_step, "watchdog_events": wd.events,
+            "watchdog_ewma_s": wd.ewma, "lr_last": float(m["lr"]),
+            "grad_norm_last": float(m["grad_norm"])}
+
+
+def _profile_train_step(step, params, opt, batch) -> dict:
+    """One more train step under ``torch.profiler``: the device's busy
+    and idle share of the step's wall time and its costliest kernels
+    (``profile_engine.trace_summary``)."""
+    from repro_torch.launch.profile_engine import trace_summary
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    with tempfile.TemporaryDirectory(prefix="train_trace_") as tmp:
+        path = Path(tmp) / "train_step.json"
+        prof.export_chrome_trace(str(path))
+        out = trace_summary(json.loads(path.read_text()), wall_us, top=12)
+    return {k: out[k] for k in ("wall_ms", "kernel_ms", "copy_ms", "busy_ms",
+                                "idle_share", "kernel_launches",
+                                "top_kernels")}
+
+
+def _train_ft(cfg, batch, tcfg) -> dict:
+    """Fault tolerance at full width cut to 2 layers (a 36-layer state
+    would write about 31 GB): async checkpoints at steps 2 and 3 with keep
+    1, a resume from step 2 that gives step 3 bit for bit, microbatches 2
+    against 1, the temporary directory removed."""
+    from repro_torch.ft import checkpoint as ckpt
+    from repro_torch.models.model import build_model
+    from repro_torch.models.spec import tree_leaves, tree_map
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_loop import (TrainConfig,
+                                                 build_train_step,
+                                                 init_train_state,
+                                                 opt_state_spec)
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    model = build_model(cfg2)
+    step = build_train_step(model, tcfg)
+    params, opt = init_train_state(
+        model, torch.Generator("cuda").manual_seed(0), "cuda")
+    with tempfile.TemporaryDirectory(prefix="train_ckpt_") as tmp:
+        saver = ckpt.AsyncCheckpointer(tmp, keep=1)
+        t0 = time.perf_counter()
+        run = _train_steps(step, params, opt, batch, 2)
+        saver.save(2, {"params": run["params"], "opt": run["opt"]},
+                   extra={"step": 2})
+        saver.wait()
+        restored, extra = ckpt.restore_checkpoint(
+            tmp, 2, {"params": model.spec, "opt": opt_state_spec(model)},
+            "cuda")
+        run3 = _train_steps(step, run["params"], run["opt"], batch, 1)
+        saver.save(3, {"params": run3["params"], "opt": run3["opt"]},
+                   extra={"step": 3})
+        resumed = _train_steps(step, restored["params"], restored["opt"],
+                               batch, 1)
+        saver.wait()
+        ckpt_s = time.perf_counter() - t0
+        kept = sorted(os.listdir(tmp))
+        bitwise = (resumed["losses"] == run3["losses"] and all(
+            torch.equal(x, y) for x, y in zip(
+                tree_leaves(resumed["params"]) + tree_leaves(resumed["opt"]),
+                tree_leaves(run3["params"]) + tree_leaves(run3["opt"]))))
+        del run, run3, resumed, restored, params, opt
+    gone = not os.path.exists(tmp)
+    # microbatches 2 against 1 from the same weights, one step at lr 1e-2
+    # (where each change is well above bf16 rounding): loss, grad_norm, and
+    # each leaf's first moment and change
+    fresh, _ = init_train_state(
+        model, torch.Generator("cuda").manual_seed(0), "cuda")
+    mb_cfg = dataclasses.replace(tcfg, optimizer=dataclasses.replace(
+        tcfg.optimizer, lr=1e-2, warmup_steps=1))
+    mb, moment, change = {}, {}, {}
+    for n in (2, 1):
+        p = tree_map(torch.clone, fresh)
+        st = build_train_step(model, dataclasses.replace(mb_cfg,
+                                                         microbatches=n))
+        bt = ({k: x.reshape(n, -1, *x.shape[1:]) for k, x in batch.items()}
+              if n > 1 else batch)
+        _, o, m = st(p, init_opt_state(p), bt)
+        mb[n] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+        moment[n] = ckpt._flatten(o["m"])
+        change[n] = ckpt._flatten(tree_map(
+            lambda a, b: a.float() - b.float(), p, fresh))
+        del p, o
+    del fresh
+    mb_rel = {"moment": _leaf_rel_l2(moment[2], moment[1]),
+              "change": _leaf_rel_l2(change[2], change[1])}
+    del moment, change
+    out = {"layers": 2, "checkpoints_kept": kept, "extra": extra,
+           "resume_step3_bitwise": bitwise, "temp_dir_removed": gone,
+           "checkpoint_run_s": ckpt_s, "microbatches": mb,
+           "microbatch_rel_l2": mb_rel}
+    log("train_ft: " + json.dumps(out))
+    if kept != ["step_00000003"] or extra != {"step": 2}:
+        raise AssertionError(f"async checkpoints kept {kept}")
+    if not (bitwise and gone):
+        raise AssertionError("resume from step 2 did not give step 3 bit "
+                             "for bit, or the temp directory stayed")
+    if not all(math.isclose(mb[2][k], mb[1][k], rel_tol=2e-2)
+               for k in ("loss", "grad_norm")) \
+            or any(max(mb_rel[k].values()) > MICROBATCH_REL_L2[k]
+                   for k in MICROBATCH_REL_L2):
+        raise AssertionError(f"microbatches 2 against 1: {mb}, {mb_rel} "
+                             f"(bounds {MICROBATCH_REL_L2})")
+    return out
+
+
+def _train_compression(grad: torch.Tensor) -> dict:
+    """``reduce_gradients`` over a one-rank NCCL group (FileStore) on one
+    full-width gradient leaf, the three modes at the reference tests'
+    tolerances."""
+    from repro_torch.training import compression as C
+
+    group = C.one_rank_group()
+    out = {"backend": str(torch.distributed.get_backend(group)),
+           "leaf_shape": list(grad.shape)}
+    try:
+        for mode, tol in (("none", 1e-6), ("bf16", 1e-2), ("int8_ef", 2e-2)):
+            red, _ = C.reduce_gradients({"g": grad}, group, mode=mode)
+            scale = float(grad.abs().max())
+            err = float((red["g"] - grad.float()).abs().max())
+            out[mode] = err / scale
+            if not err <= tol * scale:
+                raise AssertionError(f"reduce_gradients {mode}: |err| {err} "
+                                     f"over a leaf of max {scale}")
+    finally:
+        C.destroy_group()
+    log("train_compression: " + json.dumps(out))
+    return out
+
+
+def _train_cli() -> dict:
+    """The train CLI as a subprocess on the card: full qwen2.5-3b, 4 steps
+    at batch 2, seq 1024; every loss finite."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--steps", "4",
+           "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=ROOT, timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    log("train_cli: " + " | ".join(lines) + f" ({time.perf_counter() - t0:.1f} s)")
+    losses = [float(ln.split()[3]) for ln in lines if ln.startswith("step")]
+    if proc.returncode != 0 or not lines or not lines[0].startswith(
+            "device cuda") or len(losses) != 4 or not all(
+                math.isfinite(x) for x in losses):
+        raise AssertionError(f"train CLI failed ({proc.returncode}): "
+                             f"{proc.stderr[-2000:]}")
+    return {"losses": losses}
+
+
+def train_phase() -> dict:
+    """qwen2.5-3b at full width and depth (36 layers, d_model 2048, vocab
+    151936, tied embeddings) through the port's train step: batch 2 x seq
+    1024, remat, AdamW (lr 1e-3, warmup 2: the CLI's), random weights from
+    seed 0. First the gradient through the flash kernels against the same
+    gradient through plain dense attention (loss and gradient norm within
+    2e-2, each leaf within relative L2 ``GRAD_REL_L2``), and against the
+    forward kernel with the plain backward (each leaf within the same
+    bound: the backward kernel's own share); then 6 steps on one batch (the
+    reference test's overfit): losses finite and falling, exactly 72 flash
+    forward launches (36 + 36 under remat) and 36 backward calls per step;
+    then three steps from seed 0 again, bit for bit the first three; then
+    fault tolerance at 2 layers, compression over a one-rank NCCL group
+    and the train CLI. Returns the main path's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenStream
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models.model import build_model
+    from repro_torch.models.spec import tree_leaves
+    from repro_torch.training.optimizer import AdamWConfig, global_norm
+    from repro_torch.training.train_loop import (TrainConfig,
+                                                 build_train_step,
+                                                 init_train_state)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("qwen2.5-3b")
+    model = build_model(cfg)
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=2,
+                                             total_steps=TRAIN_STEPS))
+    step = build_train_step(model, tcfg)
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    batch = SyntheticTokenStream(cfg, shape, DataConfig(seed=0),
+                                 device="cuda").batch(0)
+    init = lambda: init_train_state(
+        model, torch.Generator("cuda").manual_seed(0), "cuda")
+    params, opt = init()
+    del opt
+
+    # the first step's gradient through the kernels and through plain
+    # dense attention, from the same weights and batch
+    t0 = time.perf_counter()
+    loss_k, g_k = _grads(model, params, batch, "flash")
+    loss_p, g_p = _grads(model, params, batch, "reference")
+    # the same forward kernel with the plain backward: splits the error
+    # between the forward (its bf16 P) and the backward kernel
+    before = FA.launches_bwd
+    with _plain_flash_backward():
+        _, g_x = _grads(model, params, batch, "flash")
+    if FA.launches_bwd != before:
+        raise AssertionError("the plain-backward pass launched the kernel")
+    rel = _leaf_rel_l2(g_k, g_p)
+    rel_bwd = _leaf_rel_l2(g_k, g_x)
+    rel_fwd = _leaf_rel_l2(g_x, g_p)
+    norms = (float(global_norm(g_k)), float(global_norm(g_p)))
+    vs_plain = {"loss": [float(loss_k), float(loss_p)],
+                "grad_norm": list(norms), "per_leaf_rel_l2": rel,
+                "bwd_kernel_vs_plain_bwd_rel_l2": rel_bwd,
+                "fwd_kernel_plain_bwd_vs_plain_rel_l2": rel_fwd,
+                "bound": GRAD_REL_L2, "seconds": time.perf_counter() - t0}
+    del g_k, g_p, g_x
+    log("train_vs_plain_attention: " + json.dumps(vs_plain))
+    if not (math.isclose(vs_plain["loss"][0], vs_plain["loss"][1],
+                         rel_tol=2e-2)
+            and math.isclose(norms[0], norms[1], rel_tol=2e-2)
+            and max(rel.values()) <= GRAD_REL_L2
+            and max(rel_bwd.values()) <= GRAD_REL_L2):
+        raise AssertionError("the kernels' train step disagrees with plain "
+                             "attention")
+
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = init()
+    FA.launches = FA.launches_bwd = 0
+    run = _train_steps(step, params, opt, batch, TRAIN_STEPS)
+    launches = {"flash_attention": FA.launches,
+                "flash_attention_bwd": FA.launches_bwd}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profile = _profile_train_step(step, run["params"], run["opt"], batch)
+    del run["params"], run["opt"], params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    summary = {"arch": cfg.name, "layers": cfg.num_layers,
+               "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+               "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": tcfg.remat,
+               "losses": run["losses"], "step_ms": run["ms"],
+               "step_ms_median": statistics.median(run["ms"][1:]),
+               "tokens_per_s": tokens / statistics.median(run["ms"][1:]) * 1e3,
+               "device_memory_peak_gb": peak_gb,
+               "launches_per_step": run["launches_per_step"],
+               "launches": launches, "lr_last": run["lr_last"],
+               "grad_norm_last": run["grad_norm_last"],
+               "watchdog_events": run["watchdog_events"],
+               "watchdog_ewma_s": run["watchdog_ewma_s"],
+               "deterministic": "torch.use_deterministic_algorithms "
+                                "(warn_only) around each step",
+               "profile_seventh_step": profile}
+    log("train: " + json.dumps(summary))
+    losses = run["losses"]
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"training losses {losses}")
+    per_layer = cfg.num_layers
+    if any(c != (2 * per_layer, per_layer) for c in run["launches_per_step"]):
+        raise AssertionError(f"flash launches per step "
+                             f"{run['launches_per_step']}, not "
+                             f"({2 * per_layer}, {per_layer})")
+
+    # determinism: three steps from seed 0, twice, bit for bit
+    snaps = []
+    for _ in range(2):
+        params, opt = init()
+        r = _train_steps(step, params, opt, batch, 3)
+        snaps.append((r["losses"], [t.cpu() for t in tree_leaves(r["params"])]))
+        del r, params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = snaps[0][0] == snaps[1][0] and all(
+        torch.equal(x, y) for x, y in zip(snaps[0][1], snaps[1][1]))
+    log(f"train_determinism: three steps twice from seed 0, losses "
+        f"{snaps[0][0]} / {snaps[1][0]}, parameters bitwise {same}")
+    if not same or snaps[0][0] != losses[:3]:
+        raise AssertionError("training is not bitwise repeatable")
+    del snaps
+
+    _train_ft(cfg, batch, tcfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    leaf = torch.randn((cfg.padded_vocab(), cfg.d_model),
+                       generator=torch.Generator("cuda").manual_seed(3),
+                       device="cuda") * 1e-3
+    _train_compression(leaf)
+    del leaf, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    _train_cli()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2831,6 +3354,7 @@ def main() -> int:
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     kernels = [check_decode(flush), check_flash(flush), check_chunk(flush)]
     kernels += check_d256(flush)
+    kernels.append(check_flash_bwd(flush))
     del flush
     log("kernels checked: " + json.dumps(
         {k["name"]: k["check"] for k in kernels}))
@@ -2875,6 +3399,13 @@ def main() -> int:
             k["launches"] = d256[k["name"][:-len("_d256")]]
     families = families_phase()
     log(f"families path launches: {json.dumps(families)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = train_phase()
+    log(f"train path launches: {json.dumps(train)}")
+    for k in kernels:
+        if k["name"] == "flash_attention_bwd":
+            k["launches"] = train["flash_attention_bwd"]
 
     log(f"total seconds: {time.perf_counter() - t_start:.1f}")
     log(card)                       # name, power limit as nvidia-smi gives

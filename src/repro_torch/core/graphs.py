@@ -20,10 +20,19 @@ Python: the counts a capture adds are taken back and added again on every
 replay, so each counter reads what the same number of eager calls gives.
 Callers name further counters of the same kind (``WeightStream.copies``).
 
+The graph is uploaded to the card at capture (``cuGraphUpload``): the
+first launch of a graph that was not uploaded does that work itself,
+0.7-1.5 ms over the later replays of qwen2.5-3b's 36-layer decode step on
+an H100 (ROADMAP Queue C 6), which the engine's clock would count.
+Uploading moves no value and runs nothing, so every replay computes what
+it computed before.
+
 Used on a GPU only; on the CPU the callers run their functions eagerly.
 """
 from __future__ import annotations
 
+import ctypes
+import time
 from typing import Any, Callable, Sequence
 
 import torch
@@ -34,7 +43,23 @@ from repro_torch.kernels import prefill_attention
 # (object, attribute) of every counter a replay advances
 KERNEL_COUNTERS = ((decode_attention, "launches"),
                    (flash_attention, "launches"),
+                   (flash_attention, "launches_bwd"),
                    (prefill_attention, "launches"))
+
+
+def upload_graph(graph: torch.cuda.CUDAGraph) -> float:
+    """Upload an instantiated graph to the card on the current stream
+    (``cuGraphUpload`` from ``libcuda``) and wait for it; returns the host
+    seconds it took."""
+    stream = torch.cuda.current_stream()
+    t0 = time.perf_counter()
+    err = ctypes.CDLL("libcuda.so.1").cuGraphUpload(
+        ctypes.c_void_p(graph.raw_cuda_graph_exec()),
+        ctypes.c_void_p(stream.cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"cuGraphUpload: CUDA error {err}")
+    stream.synchronize()
+    return time.perf_counter() - t0
 
 
 class Graphed:
@@ -45,7 +70,7 @@ class Graphed:
     cuBLAS's workspace, none of which may happen for the first time inside
     a capture. The warm-up really runs, so ``fn`` must be safe to call twice
     on the same inputs. A capture that fails raises; nothing falls back to
-    the eager call."""
+    the eager call. The graph is then uploaded (``upload_s``)."""
 
     def __init__(self, fn: Callable, inputs: Sequence[Any],
                  counters: Sequence[tuple[Any, str]] = ()):
@@ -63,6 +88,10 @@ class Graphed:
             self.outputs = fn(*self.inputs)
         self._per_replay = [a - b for a, b in zip(self._read(), warm)]
         self._write(start)
+        # (a PyTorch that does not expose the executable graph, or a
+        # stand-in graph, uploads nothing: upload_s stays None)
+        self.upload_s = (upload_graph(self.graph) if hasattr(
+            self.graph, "raw_cuda_graph_exec") else None)
 
     def _read(self) -> list[int]:
         return [getattr(obj, name) for obj, name in self._counters]

@@ -1,16 +1,24 @@
-"""Deterministic synthetic request stream (port of the serving half of
-``repro.data.pipeline``).
+"""Deterministic synthetic data (port of ``repro.data.pipeline``): the
+training token stream and the serving request stream.
 
 The paper's workload is a "randomly designed dataloader" (§5.1) — workload
 content does not change the system's behaviour (deterministic layer times),
-so a seeded stream is the faithful substrate. The training token stream is
-ROADMAP Queue A item 10.
+so a seeded stream is the faithful substrate. Batches come from numpy's
+Philox keyed by (seed, step, first row), as in the reference, so the port's
+batches equal the reference's bit for bit. One process builds the whole
+batch on one device; a host-sharded assembly onto a mesh is ROADMAP Queue A
+item 11.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
 
 import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.models.frontends import frontend_positions
 
 
 @dataclasses.dataclass(frozen=True)
@@ -19,6 +27,50 @@ class DataConfig:
     # synthetic request mix for serving benches
     mean_prompt_len: int = 256
     mean_output_len: int = 64
+
+
+class SyntheticTokenStream:
+    """Deterministic [B, S] token/label batches for training."""
+
+    def __init__(self, cfg: ModelConfig, shape: ShapeSpec, dcfg: DataConfig,
+                 mesh: object | None = None,
+                 device: torch.device | str = "cuda"):
+        if mesh is not None:
+            raise NotImplementedError(
+                "SyntheticTokenStream runs on one device (mesh=None); the "
+                "host-sharded assembly onto a mesh is ROADMAP Queue A item 11")
+        self.cfg, self.shape, self.dcfg = cfg, shape, dcfg
+        self.device = torch.device(device)
+        self.n_front = frontend_positions(cfg, shape)
+
+    def _host_batch(self, step: int, lo: int, hi: int) -> dict[str, np.ndarray]:
+        """Rows [lo, hi) of the global batch at ``step``."""
+        cfg, shape = self.cfg, self.shape
+        rng = np.random.Generator(np.random.Philox(
+            key=self.dcfg.seed, counter=[step, lo, 0, 0]))
+        s_tok = shape.seq_len - (self.n_front
+                                 if cfg.frontend and cfg.family != "audio" else 0)
+        toks = rng.integers(0, cfg.vocab_size, size=(hi - lo, s_tok + 1),
+                            dtype=np.int32)
+        out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.encoder_layers > 0:
+            out["enc_embeds"] = rng.standard_normal(
+                (hi - lo, shape.seq_len, cfg.d_model), dtype=np.float32) * 0.02
+        elif cfg.frontend is not None:
+            out["frontend_embeds"] = rng.standard_normal(
+                (hi - lo, self.n_front, cfg.d_model), dtype=np.float32) * 0.02
+        return out
+
+    def batch(self, step: int) -> dict[str, torch.Tensor]:
+        host = self._host_batch(step, 0, self.shape.global_batch)
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                for k, v in host.items()}
+
+    def __iter__(self) -> Iterator[dict[str, torch.Tensor]]:
+        step = 0
+        while True:
+            yield self.batch(step)
+            step += 1
 
 
 @dataclasses.dataclass(frozen=True)

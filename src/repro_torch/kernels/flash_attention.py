@@ -1,5 +1,5 @@
-"""Flash attention forward (prefill): the Hopper kernel's wrapper and its
-plain version.
+"""Flash attention (prefill and training): the Hopper kernels' wrappers,
+their plain versions and the autograd function that joins them.
 
 Replaces ``repro/kernels/flash_attention.py: flash_attention_pallas``. The
 CUDA kernel (``csrc/flash_attention.cu``) is compute-bound for long prompts:
@@ -15,6 +15,23 @@ On a CPU tensor the wrapper runs the plain version, which repeats the
 Pallas kernel's arithmetic (fp32 online softmax over 64-key tiles, queries
 scaled in fp32) in PyTorch; on a CUDA tensor it launches the kernel or
 raises.
+
+The backward (training) differentiates the same function; the reference
+takes that gradient with ``jax.grad`` of ``attn_chunked``, the Pallas
+kernel's jnp twin. Its CUDA kernels (``flash_attention_bwd_bf16`` in the
+same source) recompute P from Q, K and the forward's log-sum-exp, so they
+run five products against the forward's two: bound by operations, about
+2.5x the forward's FLOPs. Design: FlashAttention-2's split on ``mma.sync``
+tiles, with no atomics so the gradients are bitwise repeatable: Delta =
+rowsum(dO * O) first, then one block per (key tile, KV head, batch row)
+that walks the group's query heads and query tiles in a fixed order for dK
+and dV, and one block per (query tile, head, batch row) that walks the key
+tiles for dQ. P and dS are rounded to bf16 as product operands, as the
+forward rounds P. ``flash_attention_bwd_plain`` is the same algorithm in
+PyTorch (P recomputed per 64-key tile). ``FlashAttention``, the autograd
+function, launches the forward and backward kernels on CUDA tensors and
+runs the plain versions on CPU tensors; ``flash_attention`` routes through
+it whenever grad is enabled and an input requires it.
 """
 from __future__ import annotations
 
@@ -30,10 +47,18 @@ BLOCK_Q = 64
 BLOCK_K = 64
 HEAD_DIMS = (16, 32, 64, 128, 256)
 
-# kernel launches since the last reset (the main-path evidence)
-launches = 0
+# the backward kernels take head dims up to 128: at 256 the dK/dV block's
+# two fp32 accumulators exceed the registers (ROADMAP Queue B)
+BWD_HEAD_DIMS = (16, 32, 64, 128)
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 22 + [ctypes.c_void_p]
+# kernel launches since the last reset (the main-path evidence): forward
+# launches, and backward calls (each one Delta, dK/dV and dQ launch)
+launches = 0
+launches_bwd = 0
+
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 22 + [ctypes.c_void_p]
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 34
+                 + [ctypes.c_void_p])
 
 
 def _offset(sq: int, kv_len: int, causal: bool, pos_offset: int) -> int:
@@ -42,32 +67,41 @@ def _offset(sq: int, kv_len: int, causal: bool, pos_offset: int) -> int:
     return pos_offset + (kv_len - sq if causal else 0)
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True, window: int = 0,
-                          kv_len: int | None = None,
-                          pos_offset: int = 0) -> torch.Tensor:
-    """PyTorch version of the kernel. A KV tile that the masks leave empty
-    for a row is an exact no-op on that row's (m, l, acc), so walking every
-    tile equals the kernel's pruned walk."""
+def _compute_dtype(t: torch.Tensor) -> torch.dtype:
+    # fp32, or fp64 for fp64 inputs (gradcheck)
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _visible(k_lo: int, n: int, qpos: torch.Tensor, kv_len: int,
+             causal: bool, window: int) -> torch.Tensor:
+    """[Sq, n] mask of the keys ``k_lo .. k_lo + n`` each query sees."""
+    kpos = k_lo + torch.arange(n, device=qpos.device)
+    valid = (kpos < kv_len)[None, :].expand(qpos.shape[0], -1)
+    if causal:
+        valid = valid & (kpos[None, :] <= qpos[:, None])
+        if window > 0:
+            valid = valid & (kpos[None, :] > qpos[:, None] - window)
+    return valid
+
+
+def _flash_fwd_plain(q, k, v, *, causal, window, kv_len, pos_offset):
+    """(out, lse): the plain forward and each row's natural-log sum of
+    exponents ``[B,H,Sq]`` in the compute type."""
     b, h, sq, d = q.shape
     vh, sk = k.shape[1], k.shape[2]
     g = h // vh
+    cdt = _compute_dtype(q)
     kv_len = sk if kv_len is None else kv_len
     qpos = _offset(sq, kv_len, causal, pos_offset) + torch.arange(
         sq, device=q.device)
-    qf = q.float().reshape(b, vh, g, sq, d) * (1.0 / math.sqrt(d))
-    m = torch.full((b, vh, g, sq), NEG_INF, device=q.device)
-    l = torch.zeros((b, vh, g, sq), device=q.device)
-    acc = torch.zeros((b, vh, g, sq, d), device=q.device)
+    qf = q.to(cdt).reshape(b, vh, g, sq, d) * (1.0 / math.sqrt(d))
+    m = torch.full((b, vh, g, sq), NEG_INF, dtype=cdt, device=q.device)
+    l = torch.zeros((b, vh, g, sq), dtype=cdt, device=q.device)
+    acc = torch.zeros((b, vh, g, sq, d), dtype=cdt, device=q.device)
     for k_lo in range(0, sk, BLOCK_K):
-        kt = k[:, :, k_lo:k_lo + BLOCK_K].float()
-        vt = v[:, :, k_lo:k_lo + BLOCK_K].float()
-        kpos = k_lo + torch.arange(kt.shape[2], device=q.device)
-        valid = (kpos < kv_len)[None, :].expand(sq, -1)
-        if causal:
-            valid = valid & (kpos[None, :] <= qpos[:, None])
-            if window > 0:
-                valid = valid & (kpos[None, :] > qpos[:, None] - window)
+        kt = k[:, :, k_lo:k_lo + BLOCK_K].to(cdt)
+        vt = v[:, :, k_lo:k_lo + BLOCK_K].to(cdt)
+        valid = _visible(k_lo, kt.shape[2], qpos, kv_len, causal, window)
         s = torch.einsum("bvgqd,bvkd->bvgqk", qf, kt)
         s = torch.where(valid, s, torch.full_like(s, NEG_INF))
         m_new = torch.maximum(m, s.amax(dim=-1))
@@ -77,8 +111,73 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l = l * alpha + p.sum(dim=-1)
         acc = acc * alpha[..., None] + torch.einsum("bvgqk,bvkd->bvgqd", p, vt)
         m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(b, h, sq, d).to(q.dtype)
+    l = torch.clamp(l, min=1e-30)
+    out = acc / l[..., None]
+    lse = (m + torch.log(l)).reshape(b, h, sq)
+    return out.reshape(b, h, sq, d).to(q.dtype), lse
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int = 0,
+                          kv_len: int | None = None,
+                          pos_offset: int = 0) -> torch.Tensor:
+    """PyTorch version of the kernel. A KV tile that the masks leave empty
+    for a row is an exact no-op on that row's (m, l, acc), so walking every
+    tile equals the kernel's pruned walk."""
+    return _flash_fwd_plain(q, k, v, causal=causal, window=window,
+                            kv_len=kv_len, pos_offset=pos_offset)[0]
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor, *,
+                              causal: bool = True, window: int = 0,
+                              kv_len: int | None = None,
+                              pos_offset: int = 0):
+    """PyTorch version of the backward kernels: (dq, dk, dv) from the
+    forward's inputs, its output ``o`` and log-sum-exp ``lse``
+    (``[B,H,Sq]``) and the output's gradient ``do``. Delta = rowsum(dO *
+    O), then per 64-key tile P = exp(S - lse) recomputed under the masks,
+    dV = P^T dO, dS = P (dO V^T - Delta), dK = dS^T Q / sqrt(D), and dQ +=
+    dS K / sqrt(D), in fp32 (fp64 for fp64 inputs)."""
+    b, h, sq, d = q.shape
+    vh, sk = k.shape[1], k.shape[2]
+    g = h // vh
+    cdt = _compute_dtype(q)
+    kv_len = sk if kv_len is None else kv_len
+    scale = 1.0 / math.sqrt(d)
+    qpos = _offset(sq, kv_len, causal, pos_offset) + torch.arange(
+        sq, device=q.device)
+    qf = q.to(cdt).reshape(b, vh, g, sq, d) * scale
+    dof = do.to(cdt).reshape(b, vh, g, sq, d)
+    lsef = lse.to(cdt).reshape(b, vh, g, sq)[..., None]
+    delta = (dof * o.to(cdt).reshape(b, vh, g, sq, d)).sum(-1)[..., None]
+    dq = torch.zeros((b, vh, g, sq, d), dtype=cdt, device=q.device)
+    dk = torch.zeros((b, vh, sk, d), dtype=cdt, device=q.device)
+    dv = torch.zeros((b, vh, sk, d), dtype=cdt, device=q.device)
+    for k_lo in range(0, sk, BLOCK_K):
+        kt = k[:, :, k_lo:k_lo + BLOCK_K].to(cdt)
+        vt = v[:, :, k_lo:k_lo + BLOCK_K].to(cdt)
+        valid = _visible(k_lo, kt.shape[2], qpos, kv_len, causal, window)
+        s = torch.einsum("bvgqd,bvkd->bvgqk", qf, kt)
+        p = torch.where(valid, torch.exp(s - lsef), torch.zeros_like(s))
+        dv[:, :, k_lo:k_lo + BLOCK_K] = torch.einsum("bvgqk,bvgqd->bvkd",
+                                                     p, dof)
+        ds = p * (torch.einsum("bvgqd,bvkd->bvgqk", dof, vt) - delta)
+        dk[:, :, k_lo:k_lo + BLOCK_K] = torch.einsum("bvgqk,bvgqd->bvkd",
+                                                     ds, qf)
+        dq = dq + torch.einsum("bvgqk,bvkd->bvgqd", ds, kt) * scale
+    return (dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _check_inputs(**tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        if not t.is_cuda or t.dtype != torch.bfloat16 or t.stride(-1) != 1:
+            raise ValueError(f"{name}: need a bf16 CUDA tensor with unit "
+                             f"stride along head_dim, got {t.dtype} "
+                             f"{t.device} strides {t.stride()}")
+        _build.require_vector_aligned(name, t)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -91,15 +190,21 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     aligned with strides in multiples of 8 elements. The output is
     allocated ``[B,Sq,H,D]``-contiguous and returned as its ``[B,H,Sq,D]``
     view."""
+    return _flash_fwd_cuda(q, k, v, None, causal=causal, window=window,
+                           kv_len=kv_len, pos_offset=pos_offset)
+
+
+def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    lse: torch.Tensor | None, *, causal: bool, window: int,
+                    kv_len: int | None, pos_offset: int) -> torch.Tensor:
+    """``flash_attention_cuda`` that also writes each row's fp32
+    log-sum-exp into ``lse`` (contiguous ``[B,H,Sq]``, the backward's
+    input) where it is given; with ``None`` the kernel computes exactly
+    the serving path's bits."""
     global launches
     b, h, sq, d = q.shape
     vh, sk = k.shape[1], k.shape[2]
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda or t.dtype != torch.bfloat16 or t.stride(-1) != 1:
-            raise ValueError(f"{name}: need a bf16 CUDA tensor with unit "
-                             f"stride along head_dim, got {t.dtype} "
-                             f"{t.device} strides {t.stride()}")
-        _build.require_vector_aligned(name, t)
+    _check_inputs(q=q, k=k, v=v)
     if d not in HEAD_DIMS or k.shape[3] != d or v.shape != k.shape \
             or h % vh:
         raise ValueError(f"unsupported shapes q {tuple(q.shape)} k "
@@ -110,6 +215,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"kv_len {kv_len} outside [0, {sk}]")
     if max(b, -(-sq // BLOCK_Q)) > 65535:
         raise ValueError(f"batch {b} or {sq} queries beyond the kernel's grid")
+    if lse is not None and (lse.shape != (b, h, sq) or lse.dtype
+                            != torch.float32 or not lse.is_contiguous()):
+        raise ValueError(f"lse: need contiguous fp32 {(b, h, sq)}")
     out = torch.empty((b, sq, h, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     if out.numel() == 0:
@@ -122,18 +230,112 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_fwd_bf16
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *ints,
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             None if lse is None else lse.data_ptr(), *ints,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention launch")
     launches += 1
     return out
 
 
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, do: torch.Tensor, *,
+                             causal: bool = True, window: int = 0,
+                             kv_len: int | None = None,
+                             pos_offset: int = 0):
+    """Launch the backward kernels: ``(dq, dk, dv)``, each allocated
+    sequence-major (``[B,S,heads,D]``) and returned as its ``[B,heads,S,D]``
+    view, as the forward returns its output. Inputs as the forward takes
+    them; ``do`` is copied to a contiguous tensor only where its strides do
+    not suit the 16-byte loads."""
+    global launches_bwd
+    b, h, sq, d = q.shape
+    vh, sk = k.shape[1], k.shape[2]
+    if do.stride(-1) != 1 or do.data_ptr() % 16 or any(
+            st * do.element_size() % 16 for st in do.stride()[:-1]):
+        do = do.contiguous()
+    _check_inputs(q=q, k=k, v=v, o=o, do=do)
+    if d not in BWD_HEAD_DIMS or k.shape[3] != d or v.shape != k.shape \
+            or h % vh or o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"unsupported shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)} (backward "
+                         f"head_dim in {BWD_HEAD_DIMS}: D 256 is ROADMAP "
+                         f"Queue B's later work; V | H)")
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
+        raise ValueError(f"lse: need contiguous fp32 {(b, h, sq)}")
+    kv_len = sk if kv_len is None else kv_len
+    if not 0 <= kv_len <= sk:
+        raise ValueError(f"kv_len {kv_len} outside [0, {sk}]")
+    if max(b, -(-sq // BLOCK_Q), -(-sk // BLOCK_K)) > 65535:
+        raise ValueError(f"batch {b} or lengths {sq}, {sk} beyond the "
+                         f"kernels' grid")
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype,
+                     device=q.device).transpose(1, 2)
+    dk = torch.empty((b, sk, vh, d), dtype=k.dtype,
+                     device=q.device).transpose(1, 2)
+    dv = torch.empty_like(dk)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    ints = (b, h, vh, sq, sk, d, kv_len, int(causal), window,
+            _offset(sq, kv_len, causal, pos_offset),
+            *(st for t in (q, k, v, o, do, dq, dk, dv) for st in t.stride()[:3]))
+    if max(abs(i) for i in ints) >= 2**31:
+        raise ValueError("sizes or strides beyond the kernel's 32-bit ints")
+    lib = _build.load("flash_attention")
+    fn = lib.flash_attention_bwd_bf16
+    fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
+    err = fn(*(t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq, dk, dv)),
+             *ints, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention backward launch")
+    launches_bwd += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its gradient. Saves q, k, v, the output and
+    the log-sum-exp. On CUDA tensors the forward and the backward launch
+    their kernels (and raise if a launch fails); on CPU tensors both run
+    their plain versions. Nothing falls back from one to the other."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, kv_len, pos_offset):
+        kw = dict(causal=causal, window=window, kv_len=kv_len,
+                  pos_offset=pos_offset)
+        if q.is_cuda:
+            lse = torch.empty(q.shape[:3], dtype=torch.float32,
+                              device=q.device)
+            out = _flash_fwd_cuda(q, k, v, lse, **kw)
+        elif q.device.type == "cpu":
+            out, lse = _flash_fwd_plain(q, k, v, **kw)
+        else:
+            raise ValueError(f"flash_attention: no kernel for {q.device}")
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd_cuda if q.is_cuda \
+            else flash_attention_bwd_plain
+        dq, dk, dv = bwd(q, k, v, out, lse, do, **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     kv_len: int | None = None,
                     pos_offset: int = 0) -> torch.Tensor:
-    """q: [B,H,Sq,D]; k/v: [B,V,Sk,D], V | H. Returns [B,H,Sq,D]."""
+    """q: [B,H,Sq,D]; k/v: [B,V,Sk,D], V | H. Returns [B,H,Sq,D],
+    differentiable (``FlashAttention``) where grad is enabled and an input
+    requires it."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, kv_len,
+                                    pos_offset)
     kw = dict(causal=causal, window=window, kv_len=kv_len,
               pos_offset=pos_offset)
     if q.is_cuda:

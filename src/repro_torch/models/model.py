@@ -1,5 +1,5 @@
 """Model facade (port of ``repro.models.model``): build_model(cfg) -> Model
-with init / init_cache / encode / forward / prefill / decode_step.
+with init / init_cache / encode / forward / loss_fn / prefill / decode_step.
 
 The dense ``prefill``/``decode_step`` pair is the oracle the paged engine
 path is held against; ``core.memory_manager`` re-groups the same parameter
@@ -80,7 +80,8 @@ class Model:
 
     # ---- full-sequence forward ----------------------------------------------
     def forward(self, params: Params, inputs: dict, *, want_cache: bool = False,
-                cache_len: int = 0, attn_impl: str = "flash"):
+                cache_len: int = 0, attn_impl: str = "flash",
+                remat: bool = False):
         """Returns (hidden [B,S,D], caches_or_None, aux, enc_pos_or_None).
 
         inputs: {"tokens": [B,S_tok]} (+"frontend_embeds" [B,S_f,D] for vlm,
@@ -97,9 +98,25 @@ class Model:
         ctx = T.SeqCtx(positions=pos, want_cache=want_cache,
                        cache_len=cache_len or s, virtual_kv=self.virtual_kv,
                        enc_out=enc_out, enc_pos=enc_pos, attn_impl=attn_impl)
-        x, caches, aux = T.apply_stack_seq(cfg, params["blocks"], x, ctx)
+        x, caches, aux = T.apply_stack_seq(cfg, params["blocks"], x, ctx,
+                                           remat=remat)
         x = L.apply_norm(cfg, params["final_norm"], x)
         return x, caches, aux, enc_pos
+
+    # ---- losses ---------------------------------------------------------------
+    def loss_fn(self, params: Params, batch: dict, *, remat: bool = True,
+                attn_impl: str = "flash"):
+        """batch: {"tokens" [B,S], "labels" [B,S], (+frontend/enc inputs)}.
+        Returns (xent + 0.01 * aux, {"xent", "aux"}). The loss is taken over
+        the token positions only (a VLM's patch positions are sliced off)."""
+        cfg = self.cfg
+        hidden, _, aux, _ = self.forward(params, batch, attn_impl=attn_impl,
+                                         remat=remat)
+        if cfg.frontend is not None and cfg.family != "audio":
+            hidden = hidden[:, batch["frontend_embeds"].shape[1]:]
+        logits = T.lm_logits(cfg, params, hidden)
+        loss = T.xent_loss(cfg, logits, batch["labels"])
+        return loss + 0.01 * aux, {"xent": loss, "aux": aux}
 
     # ---- serving steps ---------------------------------------------------------
     def prefill(self, params: Params, inputs: dict, cache_len: int,

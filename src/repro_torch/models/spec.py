@@ -85,18 +85,21 @@ def initialize(tree: SpecTree, generator: torch.Generator,
 
 
 def to_tensor(arr: np.ndarray, device: torch.device | str) -> torch.Tensor:
-    """numpy -> tensor, bit for bit. bfloat16 arrays (``ml_dtypes``, which
-    ``torch.from_numpy`` refuses) travel as their uint16 bit patterns."""
-    arr = np.asarray(arr)
+    """numpy -> tensor, bit for bit and shape for shape (a 0-d array stays
+    0-d). bfloat16 arrays (``ml_dtypes``, which ``torch.from_numpy``
+    refuses) travel as their uint16 bit patterns."""
+    arr = np.array(arr, order="C", copy=True)
     if arr.dtype.name == "bfloat16":
-        bits = np.ascontiguousarray(arr).view(np.uint16).view(np.int16)
-        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(arr).copy()).to(device)
+        bits = arr.view(np.uint16).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 def params_from_numpy(tree: Any, device: torch.device | str) -> ArrayTree:
     """Weights bridge: a parameter tree of numpy arrays (the reference's
-    ``Model.init`` output, converted leaf by leaf) -> tensors, same keys."""
+    ``Model.init`` output, converted leaf by leaf) -> tensors, same keys.
+    An optimizer state crosses the same way: fp32 moments ``m`` / ``v`` and
+    the 0-d int32 step ``count``."""
     return tree_map(lambda a: to_tensor(a, device), tree)
 
 

@@ -16,6 +16,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.kernels import ops
@@ -395,22 +396,49 @@ def unit_slice(blocks: Any, r: int) -> Any:
     return tree_map(lambda t: t[r], blocks)
 
 
+def unit_slices(blocks: Any) -> list[Any]:
+    """Every unit of a stacked block tree, each leaf unbound once along
+    its leading dim: the same views as ``unit_slice``, but autograd stacks
+    the units' gradients in one op, where R separate slices would each add
+    a zero-padded gradient of the whole stacked leaf (R^2 / 2 leaf-sized
+    passes per backward)."""
+    is_parts = lambda x: isinstance(x, tuple)
+    parts = tree_map(lambda t: t.unbind(0), blocks)
+    r = len(tree_leaves(parts, is_leaf=is_parts)[0])
+    return [tree_map(lambda p, u=u: p[u], parts, is_leaf=is_parts)
+            for u in range(r)]
+
+
 def apply_stack_seq(cfg: ModelConfig, blocks: list[Params], x: torch.Tensor,
-                    ctx: SeqCtx, pattern: tuple[BlockSpec, ...] | None = None):
+                    ctx: SeqCtx, pattern: tuple[BlockSpec, ...] | None = None,
+                    remat: bool = False):
     """Returns (x, caches_or_None, total_aux); caches are stacked [R, ...]
     per pattern position, as the reference's scan returns them. R is the
-    blocks' leading dim (the encoder's stack has its own)."""
+    blocks' leading dim (the encoder's stack has its own).
+
+    ``remat`` recomputes each period's activations in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant, as the reference's
+    ``jax.checkpoint(period)``); it keeps no caches."""
     pattern = pattern if pattern is not None else cfg.pattern
-    r = tree_leaves(blocks)[0].shape[0]
-    per_unit, aux = [], torch.zeros((), dtype=torch.float32, device=x.device)
-    for u in range(r):
-        ps = unit_slice(blocks, u)
+    if remat and ctx.want_cache:
+        raise ValueError("remat keeps no caches: want_cache must be False")
+
+    def period(x, aux, ps):
         caches = []
         for j, blk in enumerate(pattern):
             x, c, a = apply_block_seq(cfg, blk, ps[j], x, ctx)
             caches.append(c)
             aux = aux + a
-        per_unit.append(caches)
+        return x, caches, aux
+
+    per_unit, aux = [], torch.zeros((), dtype=torch.float32, device=x.device)
+    for ps in unit_slices(blocks):
+        if remat:
+            x, aux = checkpoint(lambda x, aux, ps=ps: period(x, aux, ps)[::2],
+                                x, aux, use_reentrant=False)
+        else:
+            x, caches, aux = period(x, aux, ps)
+            per_unit.append(caches)
     if not ctx.want_cache:
         return x, None, aux
     return x, tree_map(lambda *xs: torch.stack(xs), *per_unit), aux
@@ -449,3 +477,46 @@ def lm_logits(cfg: ModelConfig, params: Params,
               x: torch.Tensor) -> torch.Tensor:
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return torch.einsum("bsd,dv->bsv", x, head)
+
+
+def xent_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
+              mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token cross entropy over fp32 logits (masked mean when a
+    mask is given)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
+def xent_loss_chunked(cfg: ModelConfig, params: Params, hidden: torch.Tensor,
+                      labels: torch.Tensor, mask: torch.Tensor | None = None,
+                      chunk: int = 512) -> torch.Tensor:
+    """Big-vocab cross entropy from the final hidden states, one sequence
+    chunk of fp32 logits at a time, each chunk recomputed in the backward
+    (``torch.utils.checkpoint`` where the reference uses ``jax.checkpoint``).
+    As in the reference it is an alternative, not wired into
+    ``Model.loss_fn``."""
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    b, s, _ = hidden.shape
+    chunk = min(chunk, s)
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=hidden.device)
+
+    def chunk_nll(h, y, m):
+        # bf16 products are exact in fp32: fp32 logits of bf16 operands
+        lf = torch.einsum("bsd,dv->bsv", h.float(), head.float())
+        lse = torch.logsumexp(lf, dim=-1)
+        ll = torch.gather(lf, -1, y.long()[..., None])[..., 0]
+        return ((lse - ll) * m).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for lo in range(0, s, chunk):
+        sl = slice(lo, lo + chunk)
+        total = total + checkpoint(chunk_nll, hidden[:, sl], labels[:, sl],
+                                   mask[:, sl], use_reentrant=False)
+    return total / torch.clamp(mask.sum(), min=1.0)

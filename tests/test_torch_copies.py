@@ -19,7 +19,8 @@ VERBATIM = sorted(
        "core/coordinator.py", "core/baselines.py", "core/simulator.py",
        "serving/kv_cache.py", "serving/request.py",
        "serving/scheduler.py", "serving/autotune.py",
-       "serving/telemetry.py", "serving/fleet.py", "data/workload.py"])
+       "serving/telemetry.py", "serving/fleet.py", "data/workload.py",
+       "ft/watchdog.py"])
 
 # module -> (reason, lines only the reference has, marker of added lines)
 EDITED = {
@@ -79,3 +80,23 @@ def test_edited_copy_differs_only_as_listed(rel):
     assert removed <= removed_ok, removed - removed_ok
     assert all(added_ok.search(a) for a in added), \
         [a for a in added if not added_ok.search(a)]
+
+
+def _class_source(path: Path, name: str) -> str:
+    import ast
+
+    text = path.read_text()
+    node = next(n for n in ast.parse(text).body
+                if isinstance(n, ast.ClassDef) and n.name == name)
+    return ast.get_source_segment(text, node)
+
+
+def test_elastic_plan_copies_the_reference():
+    """``ft/elastic.py`` keeps the reference's ``ElasticPlan`` as it is,
+    less its ``make_mesh`` (a mesh is ROADMAP Queue A item 11); ``resume``
+    is the port's own (one torch device)."""
+    ref = _class_source(SRC / "repro" / "ft" / "elastic.py", "ElasticPlan")
+    port = _class_source(SRC / "repro_torch" / "ft" / "elastic.py",
+                         "ElasticPlan")
+    cut = ref.index("\n\n    def make_mesh(self):")
+    assert port == ref[:cut]

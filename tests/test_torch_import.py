@@ -60,6 +60,25 @@ def test_analyzer_baselines_simulator_import_with_jax_blocked():
     assert out.stdout.strip().splitlines()[-1] == "ok"
 
 
+def test_training_and_ft_import_with_jax_blocked():
+    code = ("import sys; sys.modules['jax'] = None\n"
+            "import repro_torch.training.optimizer\n"
+            "import repro_torch.training.train_loop\n"
+            "import repro_torch.training.compression\n"
+            "import repro_torch.ft.checkpoint\n"
+            "import repro_torch.ft.elastic\n"
+            "import repro_torch.ft.watchdog\n"
+            "import repro_torch.launch.train\n"
+            "from repro_torch.data.pipeline import SyntheticTokenStream\n"
+            "assert 'repro' not in sys.modules\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
