@@ -115,12 +115,20 @@ Phases, each fatal on failure:
    launches and 36 backward calls per step, three steps twice from seed
    0 bit for bit; at 2 layers, async checkpoints, a resume that gives the
    next step bit for bit and microbatches 2 against 1 (loss, gradient
-   norm, first moment and change per leaf); the gradient
+   norm, first moment and change per leaf) beside a step that drops a
+   microbatch, which the change bound must catch; the gradient
    reduction over a one-rank NCCL group; and the train CLI as a
-   subprocess. The flash backward kernels are checked and timed in phase
-   2 (``check_flash_bwd``) at the training shape. Phases 4 and 8 end by
-   timing the first replays of a fresh, uploaded decode-graph capture
-   (``first_replay_probe``, Queue C 6).
+   subprocess. Phases 4 and 8 end by timing the first replays of a
+   fresh, uploaded decode-graph capture (``first_replay_probe``, Queue
+   C 6).
+12. gemma-2b trains (``train_d256_phase``) at full width and depth
+   (head_dim 256, 8 heads over 1 KV head) with the same checks as
+   qwen2.5-3b's first part: the gradient against plain attention, 4
+   steps whose loss falls with exactly 36 flash forward launches and 18
+   backward calls per step, three steps twice bit for bit. The flash
+   backward kernels are checked and timed in phase 2 (``check_flash_bwd``)
+   at both training shapes (rows ``flash_attention_bwd`` and
+   ``flash_attention_bwd_d256``).
 
 Prints a JSON ``kernels`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
@@ -2873,20 +2881,23 @@ def families_phase() -> dict:
 # version: largest |error| over the largest |value| (bf16 P and dS operands,
 # bf16 outputs; the bf16 tolerance of tests/test_kernels.py)
 BWD_TOL = 2e-2
-# qwen2.5-3b's training shape
+# qwen2.5-3b's training shape, and gemma-2b's steps at the same shape
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 6
-# per-leaf relative L2 of the 36-layer gradient through the flash kernels
-# against plain dense attention, and of the backward kernel against the
-# plain backward under the same forward: readings 0.0132-0.0363 for the
-# first and 0.0127-0.0185 for the second on one H100 (PERF.md §6)
+GEMMA_TRAIN_STEPS = 4
+# per-leaf relative L2 of the full-depth gradient through the flash
+# kernels against plain dense attention, and of the backward kernel against
+# the plain backward under the same forward: readings 0.0126-0.0363 for the
+# first and at most 0.0185 for the second on one H100, qwen2.5-3b and
+# gemma-2b (PERF.md §6)
 GRAD_REL_L2 = 0.05
 # microbatches 2 against 1 at 2 layers, one step at lr 1e-2, by relative
 # L2 per leaf: the first moment (the clipped accumulated gradient times
 # 1 - b1) and the parameters' change. Adam's first step moves each element
 # by about lr whatever its gradient's size, so the change of a leaf whose
-# elements are mostly near zero reads high: qwen's key bias read 0.476,
-# every other leaf 0.09 or less, on one H100 (PERF.md §6); a dropped
-# microbatch reads 0.97-1.04 on the CPU
+# elements are mostly near zero reads high: qwen's key bias read 0.476-0.521,
+# every other leaf 0.09 or less, on one H100; a step that drops a
+# microbatch, the control ``_train_ft`` runs beside it, reads 0.722-1.091
+# there (0.97-1.04 on the CPU) and its first moment 0.577-0.778 (PERF.md §6)
 MICROBATCH_REL_L2 = {"moment": 0.1, "change": 0.6}
 
 
@@ -2900,37 +2911,41 @@ def flash_fwd_with_lse(q, k, v, **kw):
     return FA._flash_fwd_cuda(q, k, v, lse, **kw), lse
 
 
-def check_flash_bwd(flush: torch.Tensor) -> dict:
-    """The flash backward kernels (Delta, dK/dV, dQ) against their plain
-    version at qwen2.5-3b's training shape (B 2, H 16 over V 2, S 1024, D
-    128, causal; strided [B,S,H,D] views, as the model passes them) and
-    its window, ragged, non-causal, g 1 and D 64 cases, on the forward
-    kernel's own output and log-sum-exp; two calls bitwise equal; then
-    timed beside the plain version and autograd through
-    ``scaled_dot_product_attention`` (``enable_gqa``), the library's
-    backward of the same function."""
+def _bwd_split_ms(bwd) -> dict:
+    """Device ms of each of the backward's four kernels (prep, dK/dV,
+    combine, dQ) in one call, from ``torch.profiler`` over five calls."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(5):
+            bwd()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        for part in ("prep", "dkdv", "combine", "dq"):
+            if f"flash_bwd_{part}_kernel" in ev.key:
+                out[part] = out.get(part, 0.0) + ev.device_time_total / 5e3
+    return out
+
+
+def _bwd_row(name: str, shape: tuple, cases: dict, flush: torch.Tensor,
+             gen: torch.Generator) -> dict:
+    """One backward row: each case against the plain version on the forward
+    kernel's own output and log-sum-exp (largest |error| over the largest
+    |value| within ``BWD_TOL``), two calls at ``shape`` bitwise equal, then
+    kernel, graph, plain and SDPA-backward times, the bound and the split
+    over the four kernels."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as FA
 
     dev = torch.device("cuda")
-    gen = torch.Generator(dev).manual_seed(5)
-    b, h, vh, s, d = TRAIN_BATCH, 16, 2, TRAIN_SEQ, 128
+    b, h, vh, s, d = shape
     mk = lambda n: torch.randn((b, s, n, d), generator=gen, device=dev).to(
         torch.bfloat16).transpose(1, 2)
     q, k, v, do = mk(h), mk(vh), mk(vh), mk(h)
-    cases = {"causal": (q, k, v, do, {}),
-             "window": (q, k, v, do, {"window": 200}),
-             "ragged": (q[:, :, :333], k[:, :, :333], v[:, :, :333],
-                        do[:, :, :333], {}),
-             "noncausal_kv_len": (q[:, :, :200], k, v, do[:, :, :200],
-                                  {"causal": False, "kv_len": 700}),
-             "g1": (q[:, :2, :300], k[:, :, :300], v[:, :, :300],
-                    do[:, :2, :300], {}),
-             "d64": (q[..., :64], k[..., :64], v[..., :64], do[..., :64],
-                     {"window": 70})}
     errs, rel = [], {}
-    for name, (qq, kk, vv, dd, kw) in cases.items():
+    for case, cut in cases.items():
+        qq, kk, vv, dd, kw = cut(q, k, v, do)
         out, lse = flash_fwd_with_lse(qq, kk, vv, **kw)
         got = FA.flash_attention_bwd_cuda(qq, kk, vv, out, lse, dd, **kw)
         want = FA.flash_attention_bwd_plain(qq, kk, vv, out, lse, dd, **kw)
@@ -2938,23 +2953,24 @@ def check_flash_bwd(flush: torch.Tensor) -> dict:
         for which, g_, w_ in zip(("dq", "dk", "dv"), got, want):
             g_, w_ = g_.float(), w_.float()
             if not torch.isfinite(g_).all():
-                raise AssertionError(f"flash_bwd[{name}] {which}: not finite")
+                raise AssertionError(f"{name}[{case}] {which}: not finite")
             err = float((g_ - w_).abs().max())
-            rel[f"{name}.{which}"] = err / float(w_.abs().max())
+            rel[f"{case}.{which}"] = err / float(w_.abs().max())
             errs.append(err)
-            if rel[f"{name}.{which}"] > BWD_TOL:
+            if rel[f"{case}.{which}"] > BWD_TOL:
                 raise AssertionError(
-                    f"flash_bwd[{name}] {which}: |err| {err:.4g} is "
-                    f"{rel[f'{name}.{which}']:.4g} of the largest value "
+                    f"{name}[{case}] {which}: |err| {err:.4g} is "
+                    f"{rel[f'{case}.{which}']:.4g} of the largest value "
                     f"(bound {BWD_TOL})")
     out, lse = flash_fwd_with_lse(q, k, v)
     bwd = lambda: FA.flash_attention_bwd_cuda(q, k, v, out, lse, do)
     first, again = bwd(), bwd()
     if not all(torch.equal(x, y) for x, y in zip(first, again)):
-        raise AssertionError("flash_bwd: two calls differ")
+        raise AssertionError(f"{name}: two calls differ")
     checks = list(cases) + ["bitwise_repeat"]
     ms = time_ms(bwd, flush=flush)
     in_graph_ms = graph_ms(bwd, flush)
+    split = _bwd_split_ms(bwd)
     plain_ms = time_ms(lambda: FA.flash_attention_bwd_plain(
         q, k, v, out, lse, do))
     ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
@@ -2968,17 +2984,58 @@ def check_flash_bwd(flush: torch.Tensor) -> dict:
     nbytes = 2 * (3 * q.numel() + 2 * (k.numel() + v.numel())
                   + do.numel()) + 4 * b * h * s
     bound_ms, bound_by = bound(nbytes, flops)
-    log(f"flash_bwd: B={b} H={h} V={vh} S={s} D={d} causal checks={checks} "
+    log(f"{name}: B={b} H={h} V={vh} S={s} D={d} causal checks={checks} "
         f"max_abs_err={max(errs):.3g} rel_err={json.dumps(rel)} "
         f"ms={ms:.4f} graph_ms={in_graph_ms:.4f} plain_ms={plain_ms:.4f} "
         f"sdpa_bwd_ms={lib_ms:.4f} (kernel / sdpa {ms / lib_ms:.3f}) "
-        f"bound_ms={bound_ms:.5f} ({bound_by})")
-    return {"name": "flash_attention_bwd", "route": "cuda",
+        f"bound_ms={bound_ms:.5f} ({bound_by}) "
+        f"split_ms={json.dumps(split)} (combine share "
+        f"{split.get('combine', 0.0) / max(sum(split.values()), 1e-9):.3f})")
+    return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:79",
             "max_abs_err": max(errs), "ms": ms, "graph_ms": in_graph_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms, "check": "pass", "checks": checks}
+            "library_ms": lib_ms, "check": "pass", "checks": checks,
+            "split_ms": split}
+
+
+def check_flash_bwd(flush: torch.Tensor) -> list[dict]:
+    """The flash backward kernels (prep, dK/dV, combine, dQ) against their
+    plain version, timed beside autograd through
+    ``scaled_dot_product_attention`` (``enable_gqa``), the library's
+    backward of the same function: at qwen2.5-3b's training shape (B 2, H
+    16 over V 2, S 1024, D 128, causal; strided [B,S,H,D] views, as the
+    model passes them) with its window, ragged, non-causal, g 1 and D 64
+    cases, and at gemma-2b's (B 2, H 8 over V 1, S 1024, D 256: row
+    ``flash_attention_bwd_d256``) with its window, ragged, non-causal and
+    g 1 cases."""
+    gen = torch.Generator("cuda").manual_seed(5)
+    qwen = {"causal": lambda q, k, v, do: (q, k, v, do, {}),
+            "window": lambda q, k, v, do: (q, k, v, do, {"window": 200}),
+            "ragged": lambda q, k, v, do: (
+                q[:, :, :333], k[:, :, :333], v[:, :, :333], do[:, :, :333],
+                {}),
+            "noncausal_kv_len": lambda q, k, v, do: (
+                q[:, :, :200], k, v, do[:, :, :200],
+                {"causal": False, "kv_len": 700}),
+            "g1": lambda q, k, v, do: (
+                q[:, :2, :300], k[:, :, :300], v[:, :, :300],
+                do[:, :2, :300], {}),
+            "d64": lambda q, k, v, do: (
+                q[..., :64], k[..., :64], v[..., :64], do[..., :64],
+                {"window": 70})}
+    gemma = {"causal": qwen["causal"], "window": qwen["window"],
+             "ragged": qwen["ragged"],
+             "noncausal_kv_len": qwen["noncausal_kv_len"],
+             "g1": lambda q, k, v, do: (
+                 q[:, :1, :300], k[:, :, :300], v[:, :, :300],
+                 do[:, :1, :300], {})}
+    return [_bwd_row("flash_attention_bwd", (TRAIN_BATCH, 16, 2, TRAIN_SEQ,
+                                             128), qwen, flush, gen),
+            _bwd_row("flash_attention_bwd_d256", (TRAIN_BATCH, 8, 1,
+                                                  TRAIN_SEQ, 256), gemma,
+                     flush, gen)]
 
 
 def _grads(model, params, batch, attn_impl: str):
@@ -3064,7 +3121,8 @@ def _train_ft(cfg, batch, tcfg) -> dict:
     """Fault tolerance at full width cut to 2 layers (a 36-layer state
     would write about 31 GB): async checkpoints at steps 2 and 3 with keep
     1, a resume from step 2 that gives step 3 bit for bit, microbatches 2
-    against 1, the temporary directory removed."""
+    against 1 and its control (a dropped microbatch, which the change
+    bound must catch), the temporary directory removed."""
     from repro_torch.ft import checkpoint as ckpt
     from repro_torch.models.model import build_model
     from repro_torch.models.spec import tree_leaves, tree_map
@@ -3110,13 +3168,16 @@ def _train_ft(cfg, batch, tcfg) -> dict:
         model, torch.Generator("cuda").manual_seed(0), "cuda")
     mb_cfg = dataclasses.replace(tcfg, optimizer=dataclasses.replace(
         tcfg.optimizer, lr=1e-2, warmup_steps=1))
+    # and the control: a step that drops the second microbatch (the first
+    # half of the batch alone), which the bounds must catch
     mb, moment, change = {}, {}, {}
-    for n in (2, 1):
+    for n in (2, 1, "dropped"):
         p = tree_map(torch.clone, fresh)
-        st = build_train_step(model, dataclasses.replace(mb_cfg,
-                                                         microbatches=n))
-        bt = ({k: x.reshape(n, -1, *x.shape[1:]) for k, x in batch.items()}
-              if n > 1 else batch)
+        st = build_train_step(model, dataclasses.replace(
+            mb_cfg, microbatches=2 if n == 2 else 1))
+        bt = {k: (x.reshape(2, -1, *x.shape[1:]) if n == 2
+                  else x[:x.shape[0] // 2] if n == "dropped" else x)
+              for k, x in batch.items()}
         _, o, m = st(p, init_opt_state(p), bt)
         mb[n] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
         moment[n] = ckpt._flatten(o["m"])
@@ -3126,11 +3187,18 @@ def _train_ft(cfg, batch, tcfg) -> dict:
     del fresh
     mb_rel = {"moment": _leaf_rel_l2(moment[2], moment[1]),
               "change": _leaf_rel_l2(change[2], change[1])}
+    dropped = {k: _leaf_rel_l2(x["dropped"], x[1])
+               for k, x in (("moment", moment), ("change", change))}
     del moment, change
+    readings = {k: {"sound_max": max(mb_rel[k].values()),
+                    "dropped_min": min(dropped[k].values()),
+                    "dropped_max": max(dropped[k].values()),
+                    "bound": MICROBATCH_REL_L2[k]} for k in MICROBATCH_REL_L2}
     out = {"layers": 2, "checkpoints_kept": kept, "extra": extra,
            "resume_step3_bitwise": bitwise, "temp_dir_removed": gone,
            "checkpoint_run_s": ckpt_s, "microbatches": mb,
-           "microbatch_rel_l2": mb_rel}
+           "microbatch_rel_l2": mb_rel, "dropped_microbatch_rel_l2": dropped,
+           "microbatch_readings": readings}
     log("train_ft: " + json.dumps(out))
     if kept != ["step_00000003"] or extra != {"step": 2}:
         raise AssertionError(f"async checkpoints kept {kept}")
@@ -3143,6 +3211,9 @@ def _train_ft(cfg, batch, tcfg) -> dict:
                    for k in MICROBATCH_REL_L2):
         raise AssertionError(f"microbatches 2 against 1: {mb}, {mb_rel} "
                              f"(bounds {MICROBATCH_REL_L2})")
+    if not max(dropped["change"].values()) > MICROBATCH_REL_L2["change"]:
+        raise AssertionError(f"a dropped microbatch passes the change bound: "
+                             f"{readings}")
     return out
 
 
@@ -3190,20 +3261,20 @@ def _train_cli() -> dict:
     return {"losses": losses}
 
 
-def train_phase() -> dict:
-    """qwen2.5-3b at full width and depth (36 layers, d_model 2048, vocab
-    151936, tied embeddings) through the port's train step: batch 2 x seq
-    1024, remat, AdamW (lr 1e-3, warmup 2: the CLI's), random weights from
-    seed 0. First the gradient through the flash kernels against the same
-    gradient through plain dense attention (loss and gradient norm within
-    2e-2, each leaf within relative L2 ``GRAD_REL_L2``), and against the
-    forward kernel with the plain backward (each leaf within the same
-    bound: the backward kernel's own share); then 6 steps on one batch (the
-    reference test's overfit): losses finite and falling, exactly 72 flash
-    forward launches (36 + 36 under remat) and 36 backward calls per step;
-    then three steps from seed 0 again, bit for bit the first three; then
-    fault tolerance at 2 layers, compression over a one-rank NCCL group
-    and the train CLI. Returns the main path's launches."""
+def _train_arch(arch: str, steps: int, profile: bool):
+    """``arch`` at full width and depth through the port's train step:
+    batch 2 x seq 1024 from the seeded stream, remat, AdamW (lr 1e-3,
+    warmup 2: the CLI's), random weights from seed 0. First the gradient
+    through the flash kernels against the same gradient through plain dense
+    attention (loss and gradient norm within 2e-2, each leaf within
+    relative L2 ``GRAD_REL_L2``), and against the forward kernel with the
+    plain backward (each leaf within the same bound: the backward kernel's
+    own share); then ``steps`` steps on one batch (the reference test's
+    overfit): losses finite and falling, exactly two flash forward launches
+    per layer (one more under remat) and one backward call per layer each
+    step; with ``profile``, one more step under ``torch.profiler``; then
+    three steps from seed 0 again, bit for bit the first three. Returns the
+    run's launches, the config, the batch and the train config."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data.pipeline import DataConfig, SyntheticTokenStream
@@ -3218,10 +3289,10 @@ def train_phase() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config("qwen2.5-3b")
+    cfg = get_config(arch)
     model = build_model(cfg)
     tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=2,
-                                             total_steps=TRAIN_STEPS))
+                                             total_steps=steps))
     step = build_train_step(model, tcfg)
     shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
     batch = SyntheticTokenStream(cfg, shape, DataConfig(seed=0),
@@ -3247,7 +3318,7 @@ def train_phase() -> dict:
     rel_bwd = _leaf_rel_l2(g_k, g_x)
     rel_fwd = _leaf_rel_l2(g_x, g_p)
     norms = (float(global_norm(g_k)), float(global_norm(g_p)))
-    vs_plain = {"loss": [float(loss_k), float(loss_p)],
+    vs_plain = {"arch": arch, "loss": [float(loss_k), float(loss_p)],
                 "grad_norm": list(norms), "per_leaf_rel_l2": rel,
                 "bwd_kernel_vs_plain_bwd_rel_l2": rel_bwd,
                 "fwd_kernel_plain_bwd_vs_plain_rel_l2": rel_fwd,
@@ -3259,8 +3330,8 @@ def train_phase() -> dict:
             and math.isclose(norms[0], norms[1], rel_tol=2e-2)
             and max(rel.values()) <= GRAD_REL_L2
             and max(rel_bwd.values()) <= GRAD_REL_L2):
-        raise AssertionError("the kernels' train step disagrees with plain "
-                             "attention")
+        raise AssertionError(f"{arch}: the kernels' train step disagrees "
+                             f"with plain attention")
 
     del params
     gc.collect()
@@ -3268,18 +3339,22 @@ def train_phase() -> dict:
     torch.cuda.reset_peak_memory_stats()
     params, opt = init()
     FA.launches = FA.launches_bwd = 0
-    run = _train_steps(step, params, opt, batch, TRAIN_STEPS)
+    run = _train_steps(step, params, opt, batch, steps)
     launches = {"flash_attention": FA.launches,
                 "flash_attention_bwd": FA.launches_bwd}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    profile = _profile_train_step(step, run["params"], run["opt"], batch)
+    extra = {}
+    if profile:
+        extra["profile_seventh_step"] = _profile_train_step(
+            step, run["params"], run["opt"], batch)
     del run["params"], run["opt"], params, opt
     gc.collect()
     torch.cuda.empty_cache()
     tokens = TRAIN_BATCH * TRAIN_SEQ
     summary = {"arch": cfg.name, "layers": cfg.num_layers,
-               "d_model": cfg.d_model, "vocab": cfg.vocab_size,
-               "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": tcfg.remat,
+               "d_model": cfg.d_model, "head_dim": cfg.head_dim,
+               "vocab": cfg.vocab_size, "batch": TRAIN_BATCH,
+               "seq": TRAIN_SEQ, "remat": tcfg.remat,
                "losses": run["losses"], "step_ms": run["ms"],
                "step_ms_median": statistics.median(run["ms"][1:]),
                "tokens_per_s": tokens / statistics.median(run["ms"][1:]) * 1e3,
@@ -3290,15 +3365,14 @@ def train_phase() -> dict:
                "watchdog_events": run["watchdog_events"],
                "watchdog_ewma_s": run["watchdog_ewma_s"],
                "deterministic": "torch.use_deterministic_algorithms "
-                                "(warn_only) around each step",
-               "profile_seventh_step": profile}
+                                "(warn_only) around each step", **extra}
     log("train: " + json.dumps(summary))
     losses = run["losses"]
     if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
-        raise AssertionError(f"training losses {losses}")
+        raise AssertionError(f"{arch}: training losses {losses}")
     per_layer = cfg.num_layers
     if any(c != (2 * per_layer, per_layer) for c in run["launches_per_step"]):
-        raise AssertionError(f"flash launches per step "
+        raise AssertionError(f"{arch}: flash launches per step "
                              f"{run['launches_per_step']}, not "
                              f"({2 * per_layer}, {per_layer})")
 
@@ -3313,12 +3387,22 @@ def train_phase() -> dict:
         torch.cuda.empty_cache()
     same = snaps[0][0] == snaps[1][0] and all(
         torch.equal(x, y) for x, y in zip(snaps[0][1], snaps[1][1]))
-    log(f"train_determinism: three steps twice from seed 0, losses "
+    log(f"train_determinism: {arch}, three steps twice from seed 0, losses "
         f"{snaps[0][0]} / {snaps[1][0]}, parameters bitwise {same}")
     if not same or snaps[0][0] != losses[:3]:
-        raise AssertionError("training is not bitwise repeatable")
-    del snaps
+        raise AssertionError(f"{arch}: training is not bitwise repeatable")
+    return launches, cfg, batch, tcfg
 
+
+def train_phase() -> dict:
+    """qwen2.5-3b at full width and depth (36 layers, d_model 2048, vocab
+    151936, tied embeddings) through ``_train_arch``: 6 steps, 72 flash
+    forward launches and 36 backward calls per step, a seventh step
+    profiled; then fault tolerance at 2 layers, compression over a
+    one-rank NCCL group and the train CLI. Returns the main path's
+    launches."""
+    launches, cfg, batch, tcfg = _train_arch("qwen2.5-3b", TRAIN_STEPS,
+                                             profile=True)
     _train_ft(cfg, batch, tcfg)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3330,6 +3414,17 @@ def train_phase() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     _train_cli()
+    return launches
+
+
+def train_d256_phase() -> dict:
+    """gemma-2b at full width and depth (18 layers, d_model 2048, 8 heads
+    over 1 KV head, head_dim 256, vocab 256000) through ``_train_arch``: 4
+    steps, 36 flash forward launches and 18 backward calls (the D 256
+    instances) per step. Returns its launches."""
+    launches, *_ = _train_arch("gemma-2b", GEMMA_TRAIN_STEPS, profile=False)
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -3354,7 +3449,7 @@ def main() -> int:
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     kernels = [check_decode(flush), check_flash(flush), check_chunk(flush)]
     kernels += check_d256(flush)
-    kernels.append(check_flash_bwd(flush))
+    kernels += check_flash_bwd(flush)
     del flush
     log("kernels checked: " + json.dumps(
         {k["name"]: k["check"] for k in kernels}))
@@ -3395,7 +3490,7 @@ def main() -> int:
     d256 = gemma_phase()
     log(f"gemma path launches: {json.dumps(d256)}")
     for k in kernels:
-        if k["name"].endswith("_d256"):
+        if k["name"].endswith("_d256") and k["name"][:-5] in d256:
             k["launches"] = d256[k["name"][:-len("_d256")]]
     families = families_phase()
     log(f"families path launches: {json.dumps(families)}")
@@ -3403,9 +3498,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = train_phase()
     log(f"train path launches: {json.dumps(train)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_d256 = train_d256_phase()
+    log(f"gemma train path launches: {json.dumps(train_d256)}")
     for k in kernels:
         if k["name"] == "flash_attention_bwd":
             k["launches"] = train["flash_attention_bwd"]
+        if k["name"] == "flash_attention_bwd_d256":
+            k["launches"] = train_d256["flash_attention_bwd"]
 
     log(f"total seconds: {time.perf_counter() - t_start:.1f}")
     log(card)                       # name, power limit as nvidia-smi gives

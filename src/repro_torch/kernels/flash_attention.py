@@ -19,19 +19,24 @@ raises.
 The backward (training) differentiates the same function; the reference
 takes that gradient with ``jax.grad`` of ``attn_chunked``, the Pallas
 kernel's jnp twin. Its CUDA kernels (``flash_attention_bwd_bf16`` in the
-same source) recompute P from Q, K and the forward's log-sum-exp, so they
-run five products against the forward's two: bound by operations, about
-2.5x the forward's FLOPs. Design: FlashAttention-2's split on ``mma.sync``
-tiles, with no atomics so the gradients are bitwise repeatable: Delta =
-rowsum(dO * O) first, then one block per (key tile, KV head, batch row)
-that walks the group's query heads and query tiles in a fixed order for dK
-and dV, and one block per (query tile, head, batch row) that walks the key
-tiles for dQ. P and dS are rounded to bf16 as product operands, as the
-forward rounds P. ``flash_attention_bwd_plain`` is the same algorithm in
-PyTorch (P recomputed per 64-key tile). ``FlashAttention``, the autograd
-function, launches the forward and backward kernels on CUDA tensors and
-runs the plain versions on CPU tensors; ``flash_attention`` routes through
-it whenever grad is enabled and an input requires it.
+same source, head dims 16-256) recompute P from Q, K and the forward's
+log-sum-exp: bound by operations, seven products (five, and the dQ pass's
+recomputed two) against the forward's two. Design for Hopper: every
+product is a warpgroup ``wgmma`` on tiles TMA copies into swizzled shared
+memory, kept full by a producer through an mbarrier ring. A prep pass
+writes Delta = rowsum(dO * O) and the log-sum-exp in the log2 domain; the
+dK/dV blocks each take a *unit* of a 64-key tile's items (query head x
+live 64-query tile), so a group's query heads spread over several blocks
+(about two units per SM), and write fp32 partials that a combine pass
+sums in unit order; one block per (query tile, head, batch row) walks the
+key tiles for dQ. At D 256 each unit runs as two blocks, one per half of
+D of dK and dV. No atomics, so the gradients are bitwise repeatable. P
+and dS are rounded to bf16 as product operands, as the forward rounds P.
+``flash_attention_bwd_plain`` is the same algorithm in PyTorch (P
+recomputed per 64-key tile) at any head dim. ``FlashAttention``, the
+autograd function, launches the forward and backward kernels on CUDA
+tensors and runs the plain versions on CPU tensors; ``flash_attention``
+routes through it whenever grad is enabled and an input requires it.
 """
 from __future__ import annotations
 
@@ -47,18 +52,20 @@ BLOCK_Q = 64
 BLOCK_K = 64
 HEAD_DIMS = (16, 32, 64, 128, 256)
 
-# the backward kernels take head dims up to 128: at 256 the dK/dV block's
-# two fp32 accumulators exceed the registers (ROADMAP Queue B)
-BWD_HEAD_DIMS = (16, 32, 64, 128)
+# the backward kernels take the forward's head dims (at 256 two blocks
+# split D for dK and dV)
+BWD_HEAD_DIMS = HEAD_DIMS
 
 # kernel launches since the last reset (the main-path evidence): forward
-# launches, and backward calls (each one Delta, dK/dV and dQ launch)
+# launches, and backward calls (each one prep, dK/dV, combine and dQ
+# launch)
 launches = 0
 launches_bwd = 0
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 22 + [ctypes.c_void_p]
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 34
                  + [ctypes.c_void_p])
+_SCRATCH_ARGTYPES = [ctypes.c_int] * 10
 
 
 def _offset(sq: int, kv_len: int, causal: bool, pos_offset: int) -> int:
@@ -139,7 +146,8 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     (``[B,H,Sq]``) and the output's gradient ``do``. Delta = rowsum(dO *
     O), then per 64-key tile P = exp(S - lse) recomputed under the masks,
     dV = P^T dO, dS = P (dO V^T - Delta), dK = dS^T Q / sqrt(D), and dQ +=
-    dS K / sqrt(D), in fp32 (fp64 for fp64 inputs)."""
+    dS K / sqrt(D), in fp32 (fp64 for fp64 inputs), at any head dim: the
+    kernels' reference on the card and the path on the CPU."""
     b, h, sq, d = q.shape
     vh, sk = k.shape[1], k.shape[2]
     g = h // vh
@@ -247,8 +255,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     """Launch the backward kernels: ``(dq, dk, dv)``, each allocated
     sequence-major (``[B,S,heads,D]``) and returned as its ``[B,heads,S,D]``
     view, as the forward returns its output. Inputs as the forward takes
-    them; ``do`` is copied to a contiguous tensor only where its strides do
-    not suit the 16-byte loads."""
+    them (the tensor copies need the same 16-byte alignment); ``do`` is
+    copied to a contiguous tensor only where its strides do not suit them.
+    The scratch (the prep rows and the fp32 partials of dK and dV) is
+    allocated here, sized by the library for the call."""
     global launches_bwd
     b, h, sq, d = q.shape
     vh, sk = k.shape[1], k.shape[2]
@@ -260,17 +270,17 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
             or h % vh or o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"unsupported shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)} (backward "
-                         f"head_dim in {BWD_HEAD_DIMS}: D 256 is ROADMAP "
-                         f"Queue B's later work; V | H)")
+                         f"head_dim in {BWD_HEAD_DIMS}; V | H; o and do "
+                         f"shaped as q)")
     if lse.shape != (b, h, sq) or lse.dtype != torch.float32 \
             or not lse.is_contiguous():
         raise ValueError(f"lse: need contiguous fp32 {(b, h, sq)}")
     kv_len = sk if kv_len is None else kv_len
     if not 0 <= kv_len <= sk:
         raise ValueError(f"kv_len {kv_len} outside [0, {sk}]")
-    if max(b, -(-sq // BLOCK_Q), -(-sk // BLOCK_K)) > 65535:
-        raise ValueError(f"batch {b} or lengths {sq}, {sk} beyond the "
-                         f"kernels' grid")
+    if max(b * vh, h) > 65535:
+        raise ValueError(f"batch {b} x {vh} KV heads or {h} heads beyond "
+                         f"the kernels' grid")
     dq = torch.empty((b, sq, h, d), dtype=q.dtype,
                      device=q.device).transpose(1, 2)
     dk = torch.empty((b, sk, vh, d), dtype=k.dtype,
@@ -278,17 +288,24 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     dv = torch.empty_like(dk)
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     ints = (b, h, vh, sq, sk, d, kv_len, int(causal), window,
             _offset(sq, kv_len, causal, pos_offset),
             *(st for t in (q, k, v, o, do, dq, dk, dv) for st in t.stride()[:3]))
     if max(abs(i) for i in ints) >= 2**31:
         raise ValueError("sizes or strides beyond the kernel's 32-bit ints")
     lib = _build.load("flash_attention")
+    size = lib.flash_attention_bwd_scratch_bytes
+    size.argtypes, size.restype = _SCRATCH_ARGTYPES, ctypes.c_longlong
     fn = lib.flash_attention_bwd_bf16
     fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
-    err = fn(*(t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq, dk, dv)),
-             *ints, torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):
+        # the prep rows (Delta, log-sum-exp) and the dK/dV units' partials;
+        # the unit count follows the shape and the card's SM count
+        scratch = torch.empty(size(*ints[:10]), dtype=torch.uint8,
+                              device=q.device)
+        err = fn(*(t.data_ptr() for t in (q, k, v, o, do, lse, scratch, dq,
+                                          dk, dv)),
+                 *ints, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention backward launch")
     launches_bwd += 1
     return dq, dk, dv

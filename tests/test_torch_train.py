@@ -77,7 +77,7 @@ def _np(t: torch.Tensor) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 # (b, h, vh, sq, sk, d, keywords): causal and not, g 1 / 2 / 4, window,
-# ragged lengths, kv_len and pos_offset
+# ragged lengths, kv_len and pos_offset, head_dim 16 to 256
 BWD_CASES = {
     "causal_g2": (2, 4, 2, 70, 70, 16, {}),
     "causal_g1_window": (1, 2, 2, 100, 100, 16, {"window": 20}),
@@ -85,6 +85,7 @@ BWD_CASES = {
                                                    "kv_len": 100}),
     "ragged_g4": (1, 8, 2, 33, 100, 16, {}),
     "pos_offset": (1, 4, 2, 40, 90, 16, {"pos_offset": 10}),
+    "d256_g2": (1, 2, 1, 40, 40, 256, {}),
 }
 
 
@@ -190,7 +191,9 @@ def test_flash_attention_differentiable_only_when_asked():
 # Model, loss and train step against the reference (bridged weights)
 # ---------------------------------------------------------------------------
 
-ARCHS = ("deepseek-7b", "qwen2.5-3b")
+# deepseek's and qwen's families, and gemma's (head_dim 256, MQA, GeGLU,
+# tied embeddings) as gemma-2b and as paligemma-3b's text backbone
+ARCHS = ("deepseek-7b", "qwen2.5-3b", "gemma-2b", "paligemma-3b")
 
 
 def _cfgs(arch):
@@ -553,8 +556,19 @@ def cuda():
     return torch.device("cuda")
 
 
+# qwen's and gemma's training shapes; windows, ragged and non-causal
+# lengths, kv_len, pos_offset; every head dim. The dK/dV pass cuts each
+# 64-key tile's (head, query tile) items into units, several per group at
+# qwen's and gemma's shapes and in "g16_units"; at g 1 ("g1_d64",
+# "g1_window") the units split the query range
 CUDA_BWD_CASES = {
     "qwen_causal": (2, 16, 2, 1024, 1024, 128, {}),
+    "gemma_d256": (2, 8, 1, 1024, 1024, 256, {}),
+    "d256_window": (1, 8, 1, 300, 300, 256, {"window": 100}),
+    "d256_ragged_noncausal": (1, 4, 1, 77, 201, 256, {"causal": False,
+                                                      "kv_len": 150}),
+    "g16_units": (1, 16, 1, 512, 512, 64, {}),
+    "g1_window": (1, 2, 2, 1024, 1024, 128, {"window": 300}),
     "window": (1, 8, 2, 300, 300, 128, {"window": 100}),
     "ragged_noncausal": (1, 8, 2, 77, 201, 64, {"causal": False,
                                                 "kv_len": 150}),
@@ -612,11 +626,13 @@ def test_flash_bwd_kernel_matches_plain(cuda, case):
 
 
 @pytest.mark.cuda
-def test_flash_bwd_kernel_refuses_d256(cuda):
-    q, k, v, do = _cuda_inputs(cuda, 1, 2, 1, 64, 64, 256)
-    out, lse = _fwd_with_lse(q, k, v)
-    with pytest.raises(ValueError, match="Queue B"):
-        FA.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+def test_flash_bwd_kernel_refuses_d48(cuda):
+    q, k, v, do = _cuda_inputs(cuda, 1, 2, 1, 64, 64, 48)
+    lse = torch.zeros(q.shape[:3], dtype=torch.float32, device=cuda)
+    before = FA.launches_bwd
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.flash_attention_bwd_cuda(q, k, v, q, lse, do)
+    assert FA.launches_bwd == before
 
 
 @pytest.mark.cuda
