@@ -129,6 +129,20 @@ Phases, each fatal on failure:
    backward kernels are checked and timed in phase 2 (``check_flash_bwd``)
    at both training shapes (rows ``flash_attention_bwd`` and
    ``flash_attention_bwd_d256``).
+13. The mesh (``mesh_phase``): a one-rank nccl ``DeviceMesh`` 1x1
+   ("data", "model"), started and ended here, with parameters, optimizer
+   state, batches and caches as DTensors placed by the sharding rules.
+   qwen2.5-3b trains at full width and depth through the train CLI's
+   ``--mesh`` path (train_phase's batch, remat and AdamW, 6 steps): the
+   losses bitwise train_phase's, (72, 36) flash launches a step; one more
+   step on the mesh and one on plain tensors under the cost counter
+   (``launch.hlo_costs``): FLOPs with the kernels' share, beside
+   ``core.costs.model_flops``, and the MFU of each over its own median
+   step. A 2-layer checkpoint restored onto the mesh bit for bit, and the
+   next step from it bit for bit; qwen2.5-3b's dense decode steps
+   (``OffloadRuntime.decode_step``, interval 6, eager) and one paged
+   decode step through the paged decode kernel, with DTensor parameters,
+   bitwise the plain steps; the train CLI's ``--mesh 1x1``.
 
 Prints a JSON ``kernels`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line,
@@ -3274,7 +3288,8 @@ def _train_arch(arch: str, steps: int, profile: bool):
     per layer (one more under remat) and one backward call per layer each
     step; with ``profile``, one more step under ``torch.profiler``; then
     three steps from seed 0 again, bit for bit the first three. Returns the
-    run's launches, the config, the batch and the train config."""
+    run's launches, the config, the batch, the train config and the run's
+    summary (losses, step times)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data.pipeline import DataConfig, SyntheticTokenStream
@@ -3391,7 +3406,7 @@ def _train_arch(arch: str, steps: int, profile: bool):
         f"{snaps[0][0]} / {snaps[1][0]}, parameters bitwise {same}")
     if not same or snaps[0][0] != losses[:3]:
         raise AssertionError(f"{arch}: training is not bitwise repeatable")
-    return launches, cfg, batch, tcfg
+    return launches, cfg, batch, tcfg, summary
 
 
 def train_phase() -> dict:
@@ -3400,9 +3415,9 @@ def train_phase() -> dict:
     forward launches and 36 backward calls per step, a seventh step
     profiled; then fault tolerance at 2 layers, compression over a
     one-rank NCCL group and the train CLI. Returns the main path's
-    launches."""
-    launches, cfg, batch, tcfg = _train_arch("qwen2.5-3b", TRAIN_STEPS,
-                                             profile=True)
+    launches and the run's summary (``mesh_phase`` holds its losses)."""
+    launches, cfg, batch, tcfg, summary = _train_arch(
+        "qwen2.5-3b", TRAIN_STEPS, profile=True)
     _train_ft(cfg, batch, tcfg)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3414,7 +3429,7 @@ def train_phase() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     _train_cli()
-    return launches
+    return launches, summary
 
 
 def train_d256_phase() -> dict:
@@ -3426,6 +3441,372 @@ def train_d256_phase() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+# the engine phase's interval (the smoke engine holds interval 6), the
+# dense decode's batch, prompt and steps on the mesh, and the depth of the
+# mesh checkpoint check (a 36-layer state would write about 31 GB)
+MESH_INTERVAL, MESH_DECODE_BATCH, MESH_PROMPT, MESH_DECODE_STEPS = 6, 4, 256, 4
+MESH_CKPT_LAYERS = 2
+
+
+def _full(t):
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _counted_step(step, params, opt, batch) -> dict:
+    """One more train step under the cost counter (``launch.hlo_costs``):
+    FLOPs with the kernels' share, bytes, collectives, kernel calls."""
+    from repro_torch.launch import hlo_costs
+
+    with hlo_costs.CostCounter(default_group=1) as cc:
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+    c = cc.costs()
+    return {"flops": c.flops, "kernel_flops": c.kernel_flops,
+            "hbm_bytes": c.hbm_bytes, "hbm_bytes_native": c.hbm_bytes_native,
+            "collective_bytes": c.collective_total,
+            "kernel_calls": c.kernel_calls,
+            "flops_by_op": dict(cc.flops_by_op.most_common(8)),
+            "bytes_by_op": dict(cc.bytes_by_op.most_common(8))}
+
+
+def _mfu(costs: dict, step_ms: float, model_flops: float) -> dict:
+    """The counted FLOPs over the measured median step, as a share of the
+    bf16 dense peak; and the same for ``core.costs.model_flops``."""
+    return {"counted_tflops_per_s": costs["flops"] / step_ms * 1e-9,
+            "mfu_counted": costs["flops"] / (step_ms * 1e-3) / BF16_FLOPS_S,
+            "mfu_model_flops": model_flops / (step_ms * 1e-3) / BF16_FLOPS_S,
+            "counted_over_model_flops": costs["flops"] / model_flops}
+
+
+def _mesh_train(mesh, plain: dict) -> dict:
+    """qwen2.5-3b at full width and depth on the 1x1 mesh, the train CLI's
+    ``--mesh`` path (rules, placed parameters, moments and batch, the step
+    under the rules' context) with train_phase's batch, remat and AdamW:
+    six steps whose losses must equal train_phase's bit for bit, (72, 36)
+    flash launches a step; then one more counted step here and one on
+    plain tensors, with the MFU of each over its own median."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core import costs
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenStream
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import spec as S
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding.rules import make_rules, sharding_context
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_loop import (TrainConfig,
+                                                 build_train_step,
+                                                 init_train_state)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("qwen2.5-3b")
+    model = build_model(cfg, tp=1)
+    rules = make_rules(cfg, mesh)
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=2,
+                                             total_steps=TRAIN_STEPS))
+    plain_step = build_train_step(model, tcfg)
+
+    def step(params, opt, batch):
+        with sharding_context(mesh, rules):
+            return plain_step(params, opt, batch)
+
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    params = S.place(model.init(torch.Generator("cuda").manual_seed(0),
+                                "cuda"), model.spec, mesh, rules)
+    opt = init_opt_state(params)
+    batch = SyntheticTokenStream(cfg, shape, DataConfig(seed=0),
+                                 mesh).batch(0)
+    placed = all(isinstance(t, DTensor) for t in
+                 S.tree_leaves(params) + S.tree_leaves(opt["m"])
+                 + list(batch.values()))
+    FA.launches = FA.launches_bwd = 0
+    run = _train_steps(step, params, opt, batch, TRAIN_STEPS)
+    launches = {"flash_attention": FA.launches,
+                "flash_attention_bwd": FA.launches_bwd}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    median = statistics.median(run["ms"][1:])
+    mflops = costs.model_flops(cfg, shape)
+    counted = _counted_step(step, run["params"], run["opt"], batch)
+    del run["params"], run["opt"], params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same step on plain tensors, counted (train_phase timed it)
+    p_params, p_opt = init_train_state(
+        model, torch.Generator("cuda").manual_seed(0), "cuda")
+    p_batch = SyntheticTokenStream(cfg, shape, DataConfig(seed=0),
+                                   device="cuda").batch(0)
+    counted_plain = _counted_step(plain_step, p_params, p_opt, p_batch)
+    del p_params, p_opt, p_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"arch": cfg.name, "mesh": "1x1", "backend":
+           torch.distributed.get_backend(), "placed_as_dtensors": placed,
+           "losses": run["losses"], "train_phase_losses": plain["losses"],
+           "losses_bitwise_train_phase": run["losses"] == plain["losses"],
+           "step_ms": run["ms"], "step_ms_median": median,
+           "train_phase_step_ms_median": plain["step_ms_median"],
+           "median_over_train_phase": median / plain["step_ms_median"],
+           "launches_per_step": run["launches_per_step"],
+           "launches": launches, "device_memory_peak_gb": peak_gb,
+           "model_flops": mflops,
+           "counted_mesh_step": counted, "counted_plain_step": counted_plain,
+           "mesh_step": _mfu(counted, median, mflops),
+           "plain_step": _mfu(counted_plain, plain["step_ms_median"],
+                              mflops)}
+    log("mesh_train: " + json.dumps(out))
+    if not placed:
+        raise AssertionError("mesh train: a leaf is not a DTensor")
+    if not out["losses_bitwise_train_phase"]:
+        raise AssertionError(f"mesh train: losses {run['losses']} differ "
+                             f"from train_phase's {plain['losses']}")
+    if any(c != (2 * cfg.num_layers, cfg.num_layers)
+           for c in run["launches_per_step"]):
+        raise AssertionError(f"mesh train: flash launches per step "
+                             f"{run['launches_per_step']}")
+    if counted["kernel_calls"] != {"flash_attention": 2 * cfg.num_layers,
+                                   "flash_attention_bwd": cfg.num_layers} \
+            or counted_plain["kernel_calls"] != counted["kernel_calls"]:
+        raise AssertionError(f"mesh train: counted kernel calls "
+                             f"{counted['kernel_calls']} / "
+                             f"{counted_plain['kernel_calls']}")
+    if not (0 < counted["kernel_flops"] < counted["flops"]):
+        raise AssertionError(f"mesh train: counted FLOPs {counted}")
+    return out
+
+
+def _mesh_checkpoint(mesh) -> dict:
+    """qwen2.5-3b at full width cut to 2 layers on the mesh: one step,
+    its parameters and moments saved, restored onto the mesh by the rules'
+    shardings (DTensors, equal bit for bit), and the next step from the
+    restored state bit for bit the next step from the live one."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenStream
+    from repro_torch.ft import checkpoint as ckpt
+    from repro_torch.models import spec as S
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding.rules import make_rules, sharding_context
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_loop import (TrainConfig,
+                                                 build_train_step,
+                                                 opt_state_spec)
+
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"),
+                              num_layers=MESH_CKPT_LAYERS)
+    model = build_model(cfg)
+    rules = make_rules(cfg, mesh)
+    plain_step = build_train_step(model, TrainConfig(
+        optimizer=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=4)))
+
+    def step(p, o, b):
+        with sharding_context(mesh, rules):
+            return plain_step(p, o, b)
+
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    batch = SyntheticTokenStream(cfg, shape, DataConfig(seed=0),
+                                 mesh).batch(0)
+    params = S.place(model.init(torch.Generator("cuda").manual_seed(0),
+                                "cuda"), model.spec, mesh, rules)
+    params, opt, _ = step(params, init_opt_state(params), batch)
+    target = {"params": model.spec, "opt": opt_state_spec(model)}
+    with tempfile.TemporaryDirectory(prefix="mesh_ckpt_") as tmp:
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(tmp, 1, {"params": params, "opt": opt},
+                             extra={"step": 1})
+        restored, extra = ckpt.restore_checkpoint(
+            tmp, 1, target, shardings=S.shardings(target, mesh, rules))
+        secs = time.perf_counter() - t0
+    live = S.tree_leaves({"params": params, "opt": opt})
+    back = S.tree_leaves(restored)
+    # every leaf comes back a DTensor on the rules' placement (the step
+    # count, a plain scalar while training, a replicated one)
+    same = all(isinstance(b, DTensor) and torch.equal(_full(a), _full(b))
+               and (not isinstance(a, DTensor)
+                    or tuple(a.placements) == tuple(b.placements))
+               for a, b in zip(live, back))
+    p1, _, m1 = step(params, opt, batch)
+    p2, _, m2 = step(restored["params"], restored["opt"], batch)
+    next_same = float(m1["loss"]) == float(m2["loss"]) and all(
+        torch.equal(_full(a), _full(b))
+        for a, b in zip(S.tree_leaves(p1), S.tree_leaves(p2)))
+    out = {"layers": cfg.num_layers, "leaves": len(live),
+           "restored_bitwise_on_mesh": same, "extra": extra,
+           "next_step_bitwise": next_same, "save_restore_s": secs}
+    log("mesh_checkpoint: " + json.dumps(out))
+    if not (same and next_same and extra == {"step": 1}):
+        raise AssertionError("mesh checkpoint: restore onto the mesh is not "
+                             "bitwise")
+    del params, opt, restored, p1, p2, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_decode(mesh) -> dict:
+    """qwen2.5-3b at full width through ``OffloadRuntime`` at the engine
+    phase's interval, offloaded units pinned on the host: a prefill, then
+    ``MESH_DECODE_STEPS`` dense decode steps run eagerly with the
+    parameters and caches as DTensors (the pinned units stay plain, as the
+    engine streams them) against the same steps on plain tensors, logits
+    and caches bit for bit; then one paged decode step the same way
+    through the paged decode kernel, logits and pool bit for bit."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.interval import OffloadPlan
+    from repro_torch.core.memory_manager import (OffloadRuntime,
+                                                 offload_memory_kind_fn,
+                                                 split_model_params)
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.models import spec as S
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import pattern_info
+    from repro_torch.sharding.rules import make_rules, sharding_context
+
+    dev = torch.device("cuda")
+    cfg = get_config("qwen2.5-3b")
+    model = build_model(cfg)
+    plan = OffloadPlan(pattern_info(cfg)[1], MESH_INTERVAL)
+    rt = OffloadRuntime(model, plan, dev)
+    rules = make_rules(cfg, mesh, "decode", MESH_DECODE_BATCH)
+    placed = rt.place(split_model_params(
+        model.init(torch.Generator(dev).manual_seed(0), dev), plan))
+
+    def on_mesh(tree, spec, kind_fn=None):
+        shd = S.shardings(spec, mesh, rules, kind_fn)
+        return S.tree_map(lambda t, n: t if n.memory_kind == "pinned_host"
+                          else distribute_tensor(t.clone(), mesh,
+                                                 list(n.placements)),
+                          tree, shd)
+
+    spec = rt.spec_split()
+    mparams = on_mesh({k: v for k, v in placed.items() if k != "blocks"},
+                      {k: v for k, v in spec.items() if k != "blocks"})
+    blk, bspec = placed["blocks"], spec["blocks"]
+    # the pinned stack is the one the weight ring streams from
+    mparams["blocks"] = {"resident": on_mesh(blk["resident"],
+                                             bspec["resident"]),
+                         "offloaded": blk["offloaded"],
+                         "tail": on_mesh(blk["tail"], bspec["tail"])}
+    g = torch.Generator(dev).manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, (MESH_DECODE_BATCH, MESH_PROMPT),
+                         generator=g, device=dev, dtype=torch.int32)
+    cache_len = MESH_PROMPT + 2 * MESH_DECODE_STEPS
+    logits, caches, _ = rt.prefill(placed, {"tokens": toks}, cache_len)
+    cspec = rt.cache_spec_split(MESH_DECODE_BATCH, cache_len)
+    mcaches = on_mesh(caches, cspec)
+    tok = logits.argmax(-1).to(torch.int32)
+    pos = torch.full((MESH_DECODE_BATCH,), MESH_PROMPT, dtype=torch.int32,
+                     device=dev)
+    d0, bitwise, ms_plain, ms_mesh = DA.launches, True, [], []
+    for _ in range(MESH_DECODE_STEPS):
+        t_ms, (want, caches) = _ms(lambda: rt.decode_step(placed, tok, pos,
+                                                         caches))
+        ms_plain.append(t_ms)
+        with sharding_context(mesh, rules):
+            t_ms, (got, mcaches) = _ms(lambda: rt.decode_step(
+                mparams, tok, pos, mcaches))
+        ms_mesh.append(t_ms)
+        bitwise &= torch.equal(_full(got), want)
+        tok = want.argmax(-1).to(torch.int32)
+        pos = pos + 1
+    dense_launches = DA.launches - d0
+    caches_same = all(torch.equal(_full(a), b) for a, b in zip(
+        S.tree_leaves(mcaches), S.tree_leaves(caches)))
+    # one paged step: every request's pages in a random pool, the token
+    # written at the page after its context
+    page, heads = 16, model.virtual_kv
+    nb = MESH_PROMPT // page + 1
+    frames = MESH_DECODE_BATCH * nb + 1
+    pool = (torch.randn((frames, page, cfg.num_layers, 2, heads,
+                         cfg.resolved_head_dim), generator=g, device=dev)
+            * 0.5).to(torch.bfloat16)
+    bt = torch.arange(1, frames, device=dev, dtype=torch.int32).reshape(
+        MESH_DECODE_BATCH, nb)
+    cl = torch.full((MESH_DECODE_BATCH,), MESH_PROMPT + 1,
+                    dtype=torch.int32, device=dev)
+    wf, wo = bt[:, -1].clone(), torch.zeros_like(cl)
+    pos = cl - 1
+    mpool = pool.clone()
+    want, pool = rt.paged_decode_step(placed, tok, pos, pool, bt, cl, wf, wo)
+    p0 = DA.launches
+    with sharding_context(mesh, rules):
+        got, mpool = rt.paged_decode_step(mparams, tok, pos, mpool, bt, cl,
+                                          wf, wo)
+    torch.cuda.synchronize()
+    paged_launches = DA.launches - p0
+    paged_same = torch.equal(_full(got), want) and torch.equal(mpool, pool)
+    out = {"arch": cfg.name, "interval": MESH_INTERVAL,
+           "groups": plan.num_groups, "batch": MESH_DECODE_BATCH,
+           "prompt": MESH_PROMPT, "steps": MESH_DECODE_STEPS,
+           "dense_decode_bitwise_plain": bitwise,
+           "dense_caches_bitwise_plain": caches_same,
+           "dense_decode_kernel_launches": dense_launches,
+           "dense_step_ms_plain": ms_plain, "dense_step_ms_mesh": ms_mesh,
+           "paged_decode_bitwise_plain": paged_same,
+           "paged_decode_kernel_launches": paged_launches}
+    log("mesh_decode: " + json.dumps(out))
+    if not (bitwise and caches_same and paged_same):
+        raise AssertionError("mesh decode: the DTensor step differs from "
+                             "the plain step")
+    if paged_launches != cfg.num_layers:
+        raise AssertionError(f"mesh decode: {paged_launches} paged decode "
+                             f"launches, not {cfg.num_layers}")
+    del placed, mparams, caches, mcaches, pool, mpool
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_cli() -> dict:
+    """The train CLI's ``--mesh 1x1`` in this process (the phase's nccl
+    group serves it), reduced config, three steps: finite losses."""
+    from repro_torch.launch import train
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = train.main(["--mesh", "1x1", "--reduced", "--steps", "3",
+                          "--batch", "2", "--seq", "64"])
+    text = buf.getvalue()
+    log("mesh_cli: " + " | ".join(text.strip().splitlines()))
+    if "mesh 1x1 on nccl" not in text or len(res["losses"]) != 3 or not all(
+            math.isfinite(x) for x in res["losses"]):
+        raise AssertionError(f"train CLI --mesh 1x1: {text[-2000:]}")
+    return {"losses": res["losses"]}
+
+
+def mesh_phase(train_summary: dict) -> dict:
+    """qwen2.5-3b on a real one-rank nccl ``DeviceMesh`` 1x1 ("data",
+    "model"), the parameters, optimizer state, batches and caches as
+    DTensors placed by the sharding rules: the train step (``_mesh_train``,
+    losses bitwise train_phase's, (72, 36) launches, the step's counted
+    FLOPs and MFU), a checkpoint restored onto the mesh
+    (``_mesh_checkpoint``), the dense and paged decode steps bitwise the
+    plain ones (``_mesh_decode``) and the train CLI's ``--mesh 1x1``. The
+    group is started here and ended here. Returns the mesh train's
+    launches."""
+    from repro_torch.launch.mesh import destroy, make_mesh_from_spec
+
+    destroy()
+    mesh = make_mesh_from_spec("1x1", "cuda")
+    try:
+        if torch.distributed.get_backend() != "nccl":
+            raise AssertionError("mesh phase: the 1x1 mesh is not on nccl")
+        train = _mesh_train(mesh, train_summary)
+        _mesh_checkpoint(mesh)
+        _mesh_decode(mesh)
+        _mesh_cli()
+    finally:
+        destroy()
+    return train["launches"]
 
 
 def main() -> int:
@@ -3496,12 +3877,16 @@ def main() -> int:
     log(f"families path launches: {json.dumps(families)}")
     gc.collect()
     torch.cuda.empty_cache()
-    train = train_phase()
+    train, train_summary = train_phase()
     log(f"train path launches: {json.dumps(train)}")
     gc.collect()
     torch.cuda.empty_cache()
     train_d256 = train_d256_phase()
     log(f"gemma train path launches: {json.dumps(train_d256)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_launches = mesh_phase(train_summary)
+    log(f"mesh train path launches: {json.dumps(mesh_launches)}")
     for k in kernels:
         if k["name"] == "flash_attention_bwd":
             k["launches"] = train["flash_attention_bwd"]

@@ -43,6 +43,7 @@ import torch
 from repro_torch.core import graphs
 from repro_torch.core.interval import OffloadPlan
 from repro_torch.models import layers as L
+from repro_torch.models import spec as S
 from repro_torch.models import transformer as T
 from repro_torch.models.model import Model
 from repro_torch.models.spec import TensorSpec, tree_leaves, tree_map
@@ -203,6 +204,17 @@ class WeightStream:
         operation (a capture fails on a fork left unjoined)."""
         self.join.record(self.stream)
         torch.cuda.current_stream(self.device).wait_event(self.join)
+
+
+def offload_memory_kind_fn(path: tuple) -> str | None:
+    """memory_kind for spec.shardings(): pinned_host under blocks/offloaded.
+    ``path`` is a leaf's dict keys and list indices."""
+    keys = list(path)
+    if "blocks" in keys:
+        i = keys.index("blocks")
+        if i + 1 < len(keys) and keys[i + 1] == "offloaded":
+            return "pinned_host"
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -461,3 +473,20 @@ class OffloadRuntime:
     def cache_spec_split(self, batch: int, cache_len: int, enc_len: int = 0):
         return split_stacked(
             self.model.cache_spec(batch, cache_len, enc_len), self.plan)
+
+    def spec_split(self) -> Params:
+        return split_model_params(self.model.spec, self.plan)
+
+    # ----- accounting -------------------------------------------------------
+    def memory_report(self) -> dict:
+        from repro_torch.core import costs
+        ub = costs.unit_weight_bytes(self.model.cfg)
+        p, r = T.pattern_info(self.model.cfg)
+        other = S.tree_bytes(self.model.spec) - ub * r
+        return {
+            "unit_bytes": ub,
+            "host_bytes": self.plan.host_bytes(ub),
+            "device_stack_bytes": self.plan.device_bytes(ub),
+            "device_other_bytes": other,
+            "link_bytes_per_iter": self.plan.link_bytes_per_iter(ub),
+        }

@@ -5,9 +5,10 @@ The paper's workload is a "randomly designed dataloader" (§5.1) — workload
 content does not change the system's behaviour (deterministic layer times),
 so a seeded stream is the faithful substrate. Batches come from numpy's
 Philox keyed by (seed, step, first row), as in the reference, so the port's
-batches equal the reference's bit for bit. One process builds the whole
-batch on one device; a host-sharded assembly onto a mesh is ROADMAP Queue A
-item 11.
+batches equal the reference's bit for bit. On a ``DeviceMesh`` each leaf is
+a DTensor split by rows over the data axes (``("pod", "data")`` or
+``("data",)``), float leaves in bf16, as the reference assembles its global
+array (one process builds the whole batch and places it).
 """
 from __future__ import annotations
 
@@ -16,9 +17,12 @@ from typing import Iterator
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import distribute_tensor
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.models.frontends import frontend_positions
+from repro_torch.sharding.rules import placements
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,14 +37,12 @@ class SyntheticTokenStream:
     """Deterministic [B, S] token/label batches for training."""
 
     def __init__(self, cfg: ModelConfig, shape: ShapeSpec, dcfg: DataConfig,
-                 mesh: object | None = None,
+                 mesh: DeviceMesh | None = None,
                  device: torch.device | str = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "SyntheticTokenStream runs on one device (mesh=None); the "
-                "host-sharded assembly onto a mesh is ROADMAP Queue A item 11")
         self.cfg, self.shape, self.dcfg = cfg, shape, dcfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(mesh.device_type if mesh is not None
+                                   else device)
         self.n_front = frontend_positions(cfg, shape)
 
     def _host_batch(self, step: int, lo: int, hi: int) -> dict[str, np.ndarray]:
@@ -63,8 +65,16 @@ class SyntheticTokenStream:
 
     def batch(self, step: int) -> dict[str, torch.Tensor]:
         host = self._host_batch(step, 0, self.shape.global_batch)
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in host.items()}
+        out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+               for k, v in host.items()}
+        if self.mesh is None:
+            return out
+        dp = (("pod", "data") if "pod" in self.mesh.mesh_dim_names
+              else ("data",))
+        pl = list(placements((dp,), self.mesh))
+        return {k: distribute_tensor(
+            v.to(torch.bfloat16) if v.is_floating_point() else v,
+            self.mesh, pl) for k, v in out.items()}
 
     def __iter__(self) -> Iterator[dict[str, torch.Tensor]]:
         step = 0

@@ -9,9 +9,10 @@ restores in the other:
 
 Leaves are keyed by their path of dict keys and list indices joined by
 "/", dict keys in sorted order as JAX flattens them; bf16 leaves are stored
-as their uint16 bit patterns. One process on one device: the reference's
-per-host shard files and its re-sharding restore are the mesh's (ROADMAP
-Queue A item 11); ``restore_checkpoint`` places every leaf on one device.
+as their uint16 bit patterns. One process writes every leaf whole (the
+reference's single-process layout). Restore re-shards: given target
+shardings (or DTensor target leaves), each leaf is placed on its mesh
+placement, so a checkpoint taken on one mesh restores onto any mesh.
 """
 from __future__ import annotations
 
@@ -24,8 +25,10 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.models.spec import tree_map
+from repro_torch.sharding.rules import distribute
 
 _SEP = "/"
 
@@ -47,8 +50,15 @@ def _flatten(tree: Any, prefix: tuple = ()) -> dict[str, Any]:
     return {_SEP.join(str(p) for p in prefix): tree}
 
 
+def _whole(t: Any) -> Any:
+    """A DTensor gathered whole (every rank writes full leaves)."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def _to_numpy(leaf: Any) -> tuple[np.ndarray, str]:
-    """(array as stored, manifest dtype): bf16 as its uint16 bits."""
+    """(array as stored, manifest dtype): bf16 as its uint16 bits; a
+    DTensor whole."""
+    leaf = _whole(leaf)
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -92,15 +102,19 @@ def latest_step(directory: str) -> int | None:
 
 
 def restore_checkpoint(directory: str, step: int, target: Any,
-                       device: torch.device | str = "cuda"
-                       ) -> tuple[Any, dict]:
+                       device: torch.device | str = "cuda",
+                       shardings: Any | None = None) -> tuple[Any, dict]:
     """Restore into the structure of ``target`` (tensors or a TensorSpec
     tree) on ``device`` (the card unless the caller asks for the CPU).
-    Returns (tree, extra)."""
+    With ``shardings`` (a tree of ``NamedSharding`` like ``target``), or
+    where a target leaf is a DTensor, each leaf is placed on its mesh
+    placement instead: elastic restore onto any mesh. Returns (tree,
+    extra)."""
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     data = np.load(os.path.join(path, "shard_0.npz"))
+    shd_by_key = _flatten(shardings) if shardings is not None else {}
     by_key = {}
     for key, leaf in _flatten(target).items():
         info = manifest["leaves"][key]
@@ -110,7 +124,15 @@ def restore_checkpoint(directory: str, step: int, target: Any,
         else:
             t = torch.from_numpy(np.array(raw))
         assert tuple(t.shape) == tuple(leaf.shape), (key, t.shape, leaf.shape)
-        by_key[key] = t.to(device)
+        shd = shd_by_key.get(key)
+        if shd is None and isinstance(leaf, DTensor):
+            by_key[key] = distribute_tensor(
+                t.to(leaf.device_mesh.device_type), leaf.device_mesh,
+                list(leaf.placements))
+        elif shd is not None:
+            by_key[key] = distribute(t.to(shd.mesh.device_type), shd)
+        else:
+            by_key[key] = t.to(device)
     return _unflatten_like(target, by_key), manifest["extra"]
 
 
@@ -141,7 +163,7 @@ class AsyncCheckpointer:
         self.wait()
         # the copy to host on the caller thread (a consistent snapshot of
         # leaves the next step updates in place), IO off-thread
-        host_tree = tree_map(lambda x: x.detach().to("cpu", copy=True)
+        host_tree = tree_map(lambda x: _whole(x).detach().to("cpu", copy=True)
                              if isinstance(x, torch.Tensor) else np.asarray(x),
                              tree)
 

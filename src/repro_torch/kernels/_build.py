@@ -5,16 +5,30 @@ library with a plain C interface, loaded with ``ctypes``. Libraries are
 named by the hash of their source, so an edited kernel rebuilds and a
 built one is reused. ``build_all`` starts one ``nvcc`` per source at once.
 Nothing here runs at import time.
+
+Beside the build, what every kernel wrapper shares: a fake tensor (the dry
+run's stand-in, ``launch.dryrun``) takes a kernel's path up to the launch
+(its checks, its output allocation, its cost report) and launches nothing;
+each launch, real or fake, reports its FLOPs and bytes to the listening
+cost counters (``launch.hlo_costs``), which cannot see inside a kernel;
+and ``on_local_shards`` runs a wrapper on each rank's shard of DTensor
+arguments.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
+from typing import Callable
+
+import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -23,6 +37,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+
+# the cost counters listening to kernel launches: each is called as
+# sink(kernel name, FLOPs, bytes); a counter adds itself while it counts
+COST_SINKS: list[Callable[[str, float, float], None]] = []
+_trips = threading.local()
 
 
 def nvcc() -> str:
@@ -96,14 +115,79 @@ def require_vector_aligned(name: str, t) -> None:
     """Raise unless 16-byte vector loads can read every row of tensor
     ``t``: its data pointer 16-byte aligned and every stride but the last
     (unit) one a whole number of 16-byte pieces."""
-    if t.data_ptr() % 16 or any(s * t.element_size() % 16
-                                for s in t.stride()[:-1]):
+    ptr = 0 if is_fake(t) else t.data_ptr()
+    if ptr % 16 or any(s * t.element_size() % 16 for s in t.stride()[:-1]):
         raise ValueError(f"{name}: the kernel's 16-byte loads need a 16-byte "
                          f"aligned base and strides in multiples of 16 "
                          f"bytes, got strides {t.stride()} at offset "
-                         f"{t.data_ptr() % 16} mod 16")
+                         f"{ptr % 16} mod 16")
 
 
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """A fake tensor: shapes and no memory; its kernel call launches
+    nothing."""
+    return isinstance(t, FakeTensor)
+
+
+def on_kernel_path(t: torch.Tensor) -> bool:
+    """Whether a wrapper takes its kernel's path for ``t``: a CUDA tensor,
+    or a fake one. A real CPU tensor takes the plain version."""
+    return t.is_cuda or is_fake(t)
+
+
+@contextlib.contextmanager
+def repeated(n: int):
+    """Have the cost counters count everything run inside ``n`` times over
+    (nested: the product): one traced trip of a loop standing for its
+    ``n`` trips."""
+    prev = trip_weight()
+    _trips.n = prev * n
+    try:
+        yield
+    finally:
+        _trips.n = prev
+
+
+def trip_weight() -> int:
+    return getattr(_trips, "n", 1)
+
+
+def report(name: str, flops: float, nbytes: float) -> None:
+    """One kernel launch's FLOPs and bytes, to every listening counter."""
+    for sink in COST_SINKS:
+        sink(name, flops, nbytes)
+
+
+def on_local_shards(fn: Callable, *args, align_heads: bool = False,
+                    **kwargs):
+    """``fn(*args, **kwargs)`` on each rank's local shard of the DTensor
+    arguments (``local_map``; differentiable), returning a DTensor. A
+    kernel reads raw pointers, which a DTensor's are not, so no DTensor
+    may reach one. With ``align_heads`` (attention over [B, heads, ...]
+    inputs that are all DTensors) a mesh dim keeps a shard that every
+    argument has on dim 0 (batch) or dim 1 (heads): Q's heads and the K/V
+    heads split alike keep each query head's group on its rank. Every other
+    mesh dim is replicated first, and with it each plain argument (block
+    tables, a page pool) meets the whole of its batch."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    dts = [a for a in args if isinstance(a, DTensor)]
+    mesh = dts[0].device_mesh
+    keep_ok = align_heads and len(dts) == len(args)
+    want = []
+    for i in range(mesh.ndim):
+        seen = {a.placements[i] for a in dts}
+        p = seen.pop() if len(seen) == 1 else None
+        want.append(p if keep_ok and p in (Shard(0), Shard(1))
+                    else Replicate())
+    want = tuple(want)
+    in_pl = tuple(want if isinstance(a, DTensor) else None for a in args)
+    return local_map(lambda *a: fn(*a, **kwargs), out_placements=(want,),
+                     in_placements=in_pl, redistribute_inputs=True,
+                     device_mesh=mesh)(*args)

@@ -13,7 +13,11 @@ launched from the same C entry point, merges the spans in order.
 
 On a CPU tensor the wrapper runs the plain version, which repeats the
 Pallas kernel's arithmetic (fp32 online softmax over pages) in PyTorch; on a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches the kernel or raises. A DTensor query runs on its
+local shard, replicated over the mesh (the block tables index the whole
+batch); a fake tensor takes the kernel path and launches nothing
+(``_build``). Each launch reports its FLOPs and bytes (chip_smoke's bound
+formulas) to the cost counters.
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ import ctypes
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.kernels import _build
 
@@ -122,7 +128,8 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     npages, page, vh, dk = k_pages.shape
     nb = block_tables.shape[1]
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
-        if not t.is_cuda or t.dtype != torch.bfloat16 or t.stride(-1) != 1:
+        if not _build.on_kernel_path(t) or t.dtype != torch.bfloat16 \
+                or t.stride(-1) != 1:
             raise ValueError(f"{name}: need a bf16 CUDA tensor with unit "
                              f"stride along head_dim, got {t.dtype} "
                              f"{t.device} strides {t.stride()}")
@@ -150,13 +157,34 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         return out.zero_()
     part = torch.empty(sum(math.prod(s) for s in parts.values()),
                        dtype=torch.float32, device=q.device)
+    tokens = _live_tokens(cl, nb * page)
+    cost = (4 * tokens * h * d,               # QK^T and PV
+            tokens * vh * d * 2 * 2           # K and V, bf16
+            + 2 * b * h * d * 2               # q in, out
+            + bt.numel() * 4 + cl.numel() * 4)
+    if _build.is_fake(q):
+        _build.report("paged_decode_attention", *cost)
+        return out
     err = _kernel()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                     bt.data_ptr(), cl.data_ptr(), part.data_ptr(),
                     out.data_ptr(), *ints,
                     torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_decode_attention launch")
     launches += 1
+    _build.report("paged_decode_attention", *cost)
     return out
+
+
+def _live_tokens(context_lens: torch.Tensor, capacity: int) -> int:
+    """Keys the launch reads: the context lengths clamped to the table's
+    capacity, summed. Read from the device only while a cost counter
+    listens (a fake tensor's lengths are unknown: the capacity counts)."""
+    if _build.is_fake(context_lens):
+        return context_lens.shape[0] * capacity
+    if not _build.COST_SINKS:
+        return 0
+    with _disable_current_modes():
+        return int(context_lens.clamp(0, capacity).sum())
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -170,7 +198,11 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     page may hold any value (clamped into the pool, masked by
     ``context_lens``), a row with ``context_lens[b] <= 0`` outputs zeros, and
     lengths are clamped to the table's capacity ``nb * page``."""
-    if q.is_cuda:
+    if isinstance(q, DTensor):
+        return _build.on_local_shards(
+            paged_decode_attention, q, k_pages, v_pages, block_tables,
+            context_lens, window=window)
+    if _build.on_kernel_path(q):
         return paged_decode_attention_cuda(q, k_pages, v_pages, block_tables,
                                            context_lens, window=window)
     if q.device.type != "cpu":

@@ -37,13 +37,21 @@ recomputed per 64-key tile) at any head dim. ``FlashAttention``, the
 autograd function, launches the forward and backward kernels on CUDA
 tensors and runs the plain versions on CPU tensors; ``flash_attention``
 routes through it whenever grad is enabled and an input requires it.
+
+DTensor inputs (a step on a ``DeviceMesh``) run each rank's local shard
+(``_build.on_local_shards``: batch and head shards kept where Q, K and V
+share them). A fake tensor takes the kernel path and launches nothing
+(``_build``). Each launch reports its FLOPs and bytes (chip_smoke's bound
+formulas over the masks' visible pairs) to the cost counters.
 """
 from __future__ import annotations
 
 import ctypes
 import math
 
+import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import _build
 
@@ -72,6 +80,18 @@ def _offset(sq: int, kv_len: int, causal: bool, pos_offset: int) -> int:
     """Absolute position of query row 0: queries align to the last ``sq``
     keys under the causal mask, shifted by ``pos_offset``."""
     return pos_offset + (kv_len - sq if causal else 0)
+
+
+def visible_pairs(sq: int, kv_len: int, causal: bool, window: int,
+                  pos_offset: int) -> int:
+    """(query, key) pairs the masks leave visible: each product's work."""
+    if not causal:
+        return sq * kv_len
+    qpos = _offset(sq, kv_len, causal, pos_offset) + np.arange(sq,
+                                                               dtype=np.int64)
+    hi = np.minimum(qpos + 1, kv_len)
+    lo = np.maximum(qpos - window + 1, 0) if window > 0 else 0
+    return int(np.clip(hi - lo, 0, None).sum())
 
 
 def _compute_dtype(t: torch.Tensor) -> torch.dtype:
@@ -181,7 +201,8 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
 
 def _check_inputs(**tensors: torch.Tensor) -> None:
     for name, t in tensors.items():
-        if not t.is_cuda or t.dtype != torch.bfloat16 or t.stride(-1) != 1:
+        if not _build.on_kernel_path(t) or t.dtype != torch.bfloat16 \
+                or t.stride(-1) != 1:
             raise ValueError(f"{name}: need a bf16 CUDA tensor with unit "
                              f"stride along head_dim, got {t.dtype} "
                              f"{t.device} strides {t.stride()}")
@@ -235,6 +256,13 @@ def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     if max(abs(i) for i in ints) >= 2**31:
         raise ValueError("sizes or strides beyond the kernel's 32-bit ints")
+    pairs = visible_pairs(sq, kv_len, causal, window, pos_offset)
+    cost = (4 * b * h * pairs * d,
+            2 * (2 * q.numel() + k.numel() + v.numel())
+            + (0 if lse is None else 4 * lse.numel()))
+    if _build.is_fake(q):
+        _build.report("flash_attention", *cost)
+        return out
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_fwd_bf16
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
@@ -243,6 +271,7 @@ def _flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention launch")
     launches += 1
+    _build.report("flash_attention", *cost)
     return out
 
 
@@ -262,7 +291,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     global launches_bwd
     b, h, sq, d = q.shape
     vh, sk = k.shape[1], k.shape[2]
-    if do.stride(-1) != 1 or do.data_ptr() % 16 or any(
+    if do.stride(-1) != 1 or (not _build.is_fake(do)
+                              and do.data_ptr() % 16) or any(
             st * do.element_size() % 16 for st in do.stride()[:-1]):
         do = do.contiguous()
     _check_inputs(q=q, k=k, v=v, o=o, do=do)
@@ -293,6 +323,15 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
             *(st for t in (q, k, v, o, do, dq, dk, dv) for st in t.stride()[:3]))
     if max(abs(i) for i in ints) >= 2**31:
         raise ValueError("sizes or strides beyond the kernel's 32-bit ints")
+    # five products (QK^T, dO V^T, P^T dO, dS^T Q, dS K); q, o, dq, k, v,
+    # dk, dv, do and the log-sum-exp each read or written once
+    pairs = visible_pairs(sq, kv_len, causal, window, pos_offset)
+    cost = (10 * b * h * pairs * d,
+            2 * (3 * q.numel() + 2 * (k.numel() + v.numel()) + do.numel())
+            + 4 * lse.numel())
+    if _build.is_fake(q):
+        _build.report("flash_attention_bwd", *cost)
+        return dq, dk, dv
     lib = _build.load("flash_attention")
     size = lib.flash_attention_bwd_scratch_bytes
     size.argtypes, size.restype = _SCRATCH_ARGTYPES, ctypes.c_longlong
@@ -308,6 +347,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                  *ints, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention backward launch")
     launches_bwd += 1
+    _build.report("flash_attention_bwd", *cost)
     return dq, dk, dv
 
 
@@ -321,7 +361,7 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, kv_len, pos_offset):
         kw = dict(causal=causal, window=window, kv_len=kv_len,
                   pos_offset=pos_offset)
-        if q.is_cuda:
+        if _build.on_kernel_path(q):
             lse = torch.empty(q.shape[:3], dtype=torch.float32,
                               device=q.device)
             out = _flash_fwd_cuda(q, k, v, lse, **kw)
@@ -336,7 +376,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        bwd = flash_attention_bwd_cuda if q.is_cuda \
+        bwd = flash_attention_bwd_cuda if _build.on_kernel_path(q) \
             else flash_attention_bwd_plain
         dq, dk, dv = bwd(q, k, v, out, lse, do, **ctx.kw)
         return dq, dk, dv, None, None, None, None
@@ -348,15 +388,41 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     pos_offset: int = 0) -> torch.Tensor:
     """q: [B,H,Sq,D]; k/v: [B,V,Sk,D], V | H. Returns [B,H,Sq,D],
     differentiable (``FlashAttention``) where grad is enabled and an input
-    requires it."""
+    requires it; DTensors give a DTensor, computed on the local shards."""
+    if isinstance(q, DTensor):
+        return _build.on_local_shards(
+            flash_attention, q, k, v, align_heads=True, causal=causal,
+            window=window, kv_len=kv_len, pos_offset=pos_offset)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window, kv_len,
                                     pos_offset)
     kw = dict(causal=causal, window=window, kv_len=kv_len,
               pos_offset=pos_offset)
-    if q.is_cuda:
+    if _build.on_kernel_path(q):
         return flash_attention_cuda(q, k, v, **kw)
     if q.device.type != "cpu":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     return flash_attention_plain(q, k, v, **kw)
+
+
+def flash_attention_padded(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, **kw) -> torch.Tensor:
+    """``flash_attention`` at any head dim up to the largest the kernels
+    take: on the kernel path a head dim they lack (h2o-danube-3-4b's 120)
+    runs zero-padded to the next one, Dp. Padding leaves every score
+    unchanged but the kernels' 1/sqrt(Dp) scale, so Q is first multiplied
+    by sqrt(Dp / D) in fp32 and rounded to bf16 (a rounding the unpadded
+    kernel does not make: within the bf16 tolerance). Differentiable: the
+    gradient flows back through the scale, the pads and the slice. On CPU
+    tensors, and at a head dim the kernels take, it is ``flash_attention``."""
+    if isinstance(q, DTensor):
+        return _build.on_local_shards(flash_attention_padded, q, k, v,
+                                      align_heads=True, **kw)
+    d = q.shape[-1]
+    if not _build.on_kernel_path(q) or d in HEAD_DIMS or d > HEAD_DIMS[-1]:
+        return flash_attention(q, k, v, **kw)
+    dp = next(x for x in HEAD_DIMS if x > d)
+    qs = (q.float() * math.sqrt(dp / d)).to(q.dtype)
+    pad = lambda t: torch.nn.functional.pad(t, (0, dp - d))
+    return flash_attention(pad(qs), pad(k), pad(v), **kw)[..., :d]

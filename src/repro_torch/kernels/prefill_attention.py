@@ -20,7 +20,10 @@ merges them in span order.
 
 On a CPU tensor the wrapper runs the plain version, which repeats the
 Pallas kernel's arithmetic (fp32 online softmax page by page, queries scaled
-in fp32); on a CUDA tensor it launches the kernel or raises.
+in fp32); on a CUDA tensor it launches the kernel or raises. A DTensor query
+runs on its local shard, replicated over the mesh; a fake tensor takes the
+kernel path and launches nothing (``_build``). Each launch reports its FLOPs
+and bytes (chip_smoke's bound formulas) to the cost counters.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import ctypes
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import _build
 
@@ -165,7 +169,7 @@ def paged_chunk_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     scalar is read."""
     global launches
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
-        if not t.is_cuda:
+        if not _build.on_kernel_path(t):
             raise ValueError(f"{name}: need a bf16 CUDA tensor, got "
                              f"{t.dtype} {t.device}")
     check_kernel_inputs(q, k_pages, v_pages, block_table)
@@ -179,6 +183,15 @@ def paged_chunk_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     if max(ints) >= 2**31 or c * h * d >= 2**31 or nb * page >= 2**31:
         raise ValueError("sizes or strides beyond the kernel's 32-bit ints")
     if c == 0:
+        return out
+    live_keys = min(-(-cl // page) * page, st + c)
+    pairs = sum(min(st + t + 1, live_keys) for t in range(c))
+    cost = (4 * h * d * pairs,                # QK^T and PV, visible keys
+            live_keys * vh * d * 2 * 2        # K and V, bf16, read once
+            + 2 * c * h * d * 2               # q in, out
+            + nb * 4)
+    if _build.is_fake(q):
+        _build.report("paged_chunk_attention", *cost)
         return out
     launch, lib_splits = _kernel()
     splits, parts = split_geometry(c, h, vh, d, key_end(c, page, st, cl))
@@ -195,6 +208,7 @@ def paged_chunk_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                  torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_chunk_attention launch")
     launches += 1
+    _build.report("paged_chunk_attention", *cost)
     return out
 
 
@@ -210,7 +224,11 @@ def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor,
     Table entries past the last live page may hold any value (clamped into
     the pool); ``context_len`` is clamped to ``[0, nb*page]`` and ``start``
     to ``[0, context_len]``; ``context_len`` 0 gives zeros."""
-    if q.is_cuda:
+    if isinstance(q, DTensor):
+        return _build.on_local_shards(
+            paged_chunk_attention, q, k_pages, v_pages, block_table, start,
+            context_len)
+    if _build.on_kernel_path(q):
         return paged_chunk_attention_cuda(q, k_pages, v_pages, block_table,
                                           start, context_len)
     if q.device.type != "cpu":

@@ -1,7 +1,9 @@
 """Parameter/cache spec trees (port of ``repro.models.spec``).
 
 A model is *described* first (nested dict/list of TensorSpec) and only then
-materialized. The same spec tree drives real initialization and the byte
+materialized. The same spec tree drives real initialization, fake-tensor
+stand-ins (the dry run), mesh placements (logical axes -> mesh axes via the
+sharding rules, with pinned_host for offloaded layer stacks) and the byte
 accounting in ``core.costs``. ``params_from_numpy`` is the weights bridge:
 it turns a reference parameter tree given as numpy arrays into tensors under
 the same keys, bit for bit.
@@ -14,6 +16,13 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
+
+from repro_torch.sharding.rules import (NamedSharding, Rules, distribute,
+                                        named_sharding)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +61,23 @@ def tree_map(fn: Callable, tree: Any, *rest: Any,
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn: Callable, tree: Any, is_leaf: Callable[[Any], bool]
+                      | None = None, path: tuple = ()) -> Any:
+    """``tree_map`` whose ``fn(path, leaf)`` also gets the leaf's path of
+    dict keys and list indices."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(path, tree)
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, is_leaf, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, t, is_leaf, path + (i,))
+                          for i, t in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(path, tree)
+
+
 def tree_leaves(tree: Any, is_leaf: Callable[[Any], bool] | None = None
                 ) -> list:
     out: list = []
@@ -65,6 +91,60 @@ def _is_spec(x) -> bool:
 
 def tree_map_spec(fn: Callable[[TensorSpec], Any], tree: SpecTree) -> Any:
     return tree_map(fn, tree, is_leaf=_is_spec)
+
+
+def abstract(tree: SpecTree, fake_mode: FakeTensorMode,
+             device: torch.device | str = "cpu") -> ArrayTree:
+    """Fake tensors of each spec's shape and dtype (no memory), made in
+    ``fake_mode``: the dry run's stand-ins for parameters and caches."""
+    with fake_mode:
+        return tree_map_spec(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                                   device=device), tree)
+
+
+def shardings(tree: SpecTree, mesh: Any, rules: Rules,
+              memory_kind_fn: Callable[[tuple], str | None] | None = None
+              ) -> Any:
+    """NamedSharding tree. memory_kind_fn(path) -> kind lets the offload
+    plan mark specific subtrees pinned_host."""
+    return tree_map_with_path(
+        lambda path, s: named_sharding(
+            mesh, rules, s.shape, s.logical,
+            memory_kind_fn(path) if memory_kind_fn else None),
+        tree, _is_spec)
+
+
+def fake_dtensor(shape: tuple[int, ...], dtype: torch.dtype,
+                 sharding: NamedSharding, fake_mode: FakeTensorMode,
+                 device: torch.device | str = "cpu") -> DTensor:
+    """A DTensor of global ``shape`` placed by ``sharding`` whose local
+    shard (this rank's) is a fake tensor."""
+    mesh, pl = sharding.mesh, list(sharding.placements)
+    local, _ = compute_local_shape_and_global_offset(shape, mesh, pl)
+    with fake_mode:
+        t = torch.empty(local, dtype=dtype, device=device)
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(t, mesh, pl, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
+def abstract_with_sharding(tree: SpecTree, mesh: Any, rules: Rules,
+                           fake_mode: FakeTensorMode,
+                           memory_kind_fn=None,
+                           device: torch.device | str = "cpu") -> ArrayTree:
+    """Fake DTensors with the placements the rules give each spec."""
+    shd = shardings(tree, mesh, rules, memory_kind_fn)
+    return tree_map(lambda s, n: fake_dtensor(s.shape, s.dtype, n, fake_mode,
+                                              device),
+                    tree, shd, is_leaf=_is_spec)
+
+
+def place(values: ArrayTree, tree: SpecTree, mesh: Any, rules: Rules,
+          memory_kind_fn=None) -> ArrayTree:
+    """Put a tree of full tensors where the rules place each spec on a
+    DeviceMesh: DTensors (or pinned host copies, by ``memory_kind_fn``)."""
+    shd = shardings(tree, mesh, rules, memory_kind_fn)
+    return tree_map(distribute, values, shd)
 
 
 def initialize(tree: SpecTree, generator: torch.Generator,

@@ -16,6 +16,8 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
@@ -23,6 +25,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.spec import (TensorSpec, tree_leaves, tree_map,
                                      tree_map_spec)
+from repro_torch.sharding.rules import shard
 
 Params = dict[str, Any]
 
@@ -144,22 +147,35 @@ def cache_spec(cfg: ModelConfig, batch: int, cache_len: int, virtual_kv: int,
 def fill_cache(full: torch.Tensor, positions: torch.Tensor, cache_len: int):
     """Store the last cache_len entries of [B,S,...] at slots p % cache_len.
 
-    Returns (cache, pos_array [B, cache_len]).
+    Returns (cache, pos_array [B, cache_len]). A DTensor fills each rank's
+    rows and heads (``_fill`` on its local shard).
     """
-    s = full.shape[1]
+    return _fill(full, cache_len, 0), _fill(positions, cache_len, -1)
+
+
+def _fill(x: torch.Tensor, cache_len: int, pad_value: int) -> torch.Tensor:
+    """``fill_cache`` of one tensor: padded with ``pad_value`` to
+    cache_len, or its last cache_len entries rolled into place."""
+    if isinstance(x, DTensor):
+        keep = tuple(pl if pl in (Shard(0), Shard(2)) else Replicate()
+                     for pl in x.placements)
+        return local_map(lambda t: _fill(t, cache_len, pad_value),
+                         out_placements=(keep,), in_placements=(keep,),
+                         redistribute_inputs=True,
+                         device_mesh=x.device_mesh)(x)
+    s = x.shape[1]
     if s <= cache_len:
-        pad = [0, 0] * (full.ndim - 2) + [0, cache_len - s]
-        return (F.pad(full, pad),
-                F.pad(positions, (0, cache_len - s), value=-1))
-    tail = full[:, s - cache_len:]
-    tpos = positions[:, s - cache_len:]
-    shift = s % cache_len
-    return torch.roll(tail, shift, dims=1), torch.roll(tpos, shift, dims=1)
+        pad = [0, 0] * (x.ndim - 2) + [0, cache_len - s]
+        return F.pad(x, pad, value=pad_value)
+    return torch.roll(x[:, s - cache_len:], s % cache_len, dims=1)
 
 
 def cache_write_decode(cache_k, cache_v, cache_pos, k1, v1, pos):
     """Write one token at slot pos % cache_len (per batch row). pos: [B].
-    Functional like the reference (the dense path is the oracle)."""
+    Functional like the reference (the dense path is the oracle). DTensor
+    caches are written shard by shard (``_cache_write_shards``)."""
+    if isinstance(cache_k, DTensor):
+        return _cache_write_shards(cache_k, cache_v, cache_pos, k1, v1, pos)
     clen = cache_k.shape[1]
     rows = torch.arange(cache_k.shape[0], device=cache_k.device)
     slot = (pos % clen).long()
@@ -168,6 +184,42 @@ def cache_write_decode(cache_k, cache_v, cache_pos, k1, v1, pos):
     cv[rows, slot] = v1[:, 0]
     cp[rows, slot] = pos.to(cp.dtype)
     return ck, cv, cp
+
+
+def _cache_write_shards(cache_k, cache_v, cache_pos, k1, v1, pos):
+    """``cache_write_decode`` of DTensor caches ``[B, S, V, hd]``, each rank
+    writing its own shard: its batch rows and KV heads, and, where the
+    cache's sequence is sharded (a batch too small to shard), only the
+    slots it holds (elsewhere it writes back what the slot held)."""
+    mesh, kpl = cache_k.device_mesh, tuple(cache_k.placements)
+    clen = cache_k.shape[1]
+    # this rank's first slot: mesh dims split the sequence major to minor
+    seq_lo, span = 0, clen
+    for i, pl in enumerate(kpl):
+        if pl == Shard(1):
+            span //= mesh.size(i)
+            seq_lo += mesh.get_coordinate()[i] * span
+    keep = lambda *dims: tuple(pl if pl in [Shard(d) for d in dims]
+                               else Replicate() for pl in kpl)
+    tok_pl, pos_pl, cp_pl = keep(0, 2), keep(0), keep(0, 1)
+
+    def local(ck, cv, cp, k1, v1, pos):
+        rows = torch.arange(ck.shape[0], device=ck.device)
+        slot = (pos % clen).long() - seq_lo
+        hit = (slot >= 0) & (slot < ck.shape[1])
+        slot = slot.clamp(0, ck.shape[1] - 1)
+        ck, cv, cp = ck.clone(), cv.clone(), cp.clone()
+        ck[rows, slot] = torch.where(hit[:, None, None], k1[:, 0],
+                                     ck[rows, slot])
+        cv[rows, slot] = torch.where(hit[:, None, None], v1[:, 0],
+                                     cv[rows, slot])
+        cp[rows, slot] = torch.where(hit, pos.to(cp.dtype), cp[rows, slot])
+        return ck, cv, cp
+
+    return local_map(local, out_placements=(kpl, kpl, cp_pl),
+                     in_placements=(kpl, kpl, cp_pl, tok_pl, tok_pl, pos_pl),
+                     redistribute_inputs=True, device_mesh=mesh)(
+        cache_k, cache_v, cache_pos, k1, v1, pos)
 
 
 # ---------------------------------------------------------------------------
@@ -192,9 +244,9 @@ def _self_attn_seq(cfg, p, x, ctx: SeqCtx):
     if ctx.attn_impl == "flash":
         # positions are arange(S): the causal mask over indices is the
         # causal mask over positions
-        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal=True,
-                                window=cfg.sliding_window).transpose(1, 2)
+        o = ops.flash_attention_padded(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=True, window=cfg.sliding_window).transpose(1, 2)
     elif ctx.attn_impl == "reference":
         o = L.attn_reference(cfg, q, k, v, ctx.positions, ctx.positions,
                              window=cfg.sliding_window)
@@ -214,17 +266,20 @@ def _self_attn_seq(cfg, p, x, ctx: SeqCtx):
 def _cross_attn_seq(cfg, p, x, ctx: SeqCtx):
     """Cross attention for enc-dec; enc_out already normed. The flash
     kernel runs it non-causal, Sq decoder queries over Sk encoder keys."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = torch.einsum("bsd,dhk->bshk", x,
+                     L.gathered(p["wq"], "fsdp", "heads", "head_dim"))
     if cfg.qkv_bias:
         q = q + p["bq"]
-    k = torch.einsum("bsd,dhk->bshk", ctx.enc_out, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", ctx.enc_out, p["wv"])
+    k = torch.einsum("bsd,dhk->bshk", ctx.enc_out,
+                     L.gathered(p["wk"], "fsdp", "kv", "head_dim"))
+    v = torch.einsum("bsd,dhk->bshk", ctx.enc_out,
+                     L.gathered(p["wv"], "fsdp", "kv", "head_dim"))
     k = L._expand_kv(k, ctx.virtual_kv)
     v = L._expand_kv(v, ctx.virtual_kv)
     if ctx.attn_impl == "flash":
-        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2),
-                                causal=False).transpose(1, 2)
+        o = ops.flash_attention_padded(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=False).transpose(1, 2)
     elif ctx.attn_impl == "reference":
         o = L.attn_reference(cfg, q, k, v, ctx.positions, ctx.enc_pos,
                              cross=True)
@@ -281,7 +336,8 @@ def _self_attn_decode(cfg, p, x, pos, cache, virtual_kv):
 
 
 def _cross_attn_decode(cfg, p, x, pos, cache, enc_pos):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = torch.einsum("bsd,dhk->bshk", x,
+                     L.gathered(p["wq"], "fsdp", "heads", "head_dim"))
     if cfg.qkv_bias:
         q = q + p["bq"]
     o = L.attn_reference(cfg, q, cache["k"], cache["v"], pos[:, None],
@@ -313,6 +369,15 @@ def apply_block_decode(cfg: ModelConfig, blk: BlockSpec, p: Params,
     return x, new_cache
 
 
+def _whole_for(pool: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a value to write into ``pool``: a DTensor gathered whole
+    where the page pool is a plain tensor (every rank holds the whole
+    pool)."""
+    if isinstance(t, DTensor) and not isinstance(pool, DTensor):
+        return t.full_tensor()
+    return t
+
+
 def apply_block_decode_paged(cfg: ModelConfig, blk: BlockSpec, p: Params,
                              x: torch.Tensor, pos: torch.Tensor,
                              pool: torch.Tensor, layer: int,
@@ -336,6 +401,7 @@ def apply_block_decode_paged(cfg: ModelConfig, blk: BlockSpec, p: Params,
             f"mixer {blk.mixer!r} needs a per-slot state slab (ROADMAP)")
     h = L.apply_norm(cfg, p["norm1"], x)
     q, k1, v1 = L.qkv_project(cfg, p["attn"], h, pos[:, None], virtual_kv)
+    k1, v1 = _whole_for(pool, k1), _whole_for(pool, v1)
     pool[write_frames, write_offsets, layer, 0] = k1[:, 0].to(pool.dtype)
     pool[write_frames, write_offsets, layer, 1] = v1[:, 0].to(pool.dtype)
     kv_l = pool[:, :, layer]                  # strided view, no copy
@@ -375,6 +441,7 @@ def apply_block_prefill_paged(cfg: ModelConfig, blk: BlockSpec, p: Params,
                                       device=x.device))[None]
     h = L.apply_norm(cfg, p["norm1"], x)
     q, k1, v1 = L.qkv_project(cfg, p["attn"], h, positions, virtual_kv)
+    k1, v1 = _whole_for(pool, k1), _whole_for(pool, v1)
     pool[write_frames, write_offsets, layer, 0] = k1[0].to(pool.dtype)
     pool[write_frames, write_offsets, layer, 1] = v1[0].to(pool.dtype)
     kv_l = pool[:, :, layer]                  # strided view, no copy
@@ -470,23 +537,89 @@ def apply_stack_decode(cfg: ModelConfig, blocks: list[Params],
 
 def embed_tokens(cfg: ModelConfig, params: Params,
                  tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()]
+    table = L.gathered(params["embed"], "vocab", "fsdp")
+    ids = tokens.long()
+    x = _lookup(table, ids) if isinstance(table, DTensor) else table[ids]
+    return shard(x, "batch", None, None)
+
+
+def _lookup(table: DTensor, ids: torch.Tensor) -> DTensor:
+    """Rows ``ids`` of a DTensor table [V, D], vocab-parallel: on a mesh
+    dim that splits the vocab each rank looks the ids up in its own rows
+    (zeros for the others' ids) and the result is the pending sum over
+    that dim (``Partial``), which the next constraint reduces; the ids'
+    batch shards stay on every other mesh dim."""
+    mesh, tpl = table.device_mesh, tuple(table.placements)
+    vocab = [pl == Shard(0) for pl in tpl]
+    lo, span = 0, table.shape[0]      # this rank's first row, major to minor
+    for i, split in enumerate(vocab):
+        if split:
+            span //= mesh.size(i)
+            lo += mesh.get_coordinate()[i] * span
+    if isinstance(ids, DTensor):
+        ids_pl = tuple(Shard(0) if pl == Shard(0) and not v else Replicate()
+                       for pl, v in zip(ids.placements, vocab))
+    else:
+        ids_pl = tuple(Replicate() for _ in tpl)
+    out_pl = tuple(Partial() if v else pl for v, pl in zip(vocab, ids_pl))
+    # the table's gradient from each rank's ids is its part of the sum
+    # over the ids' batch shards
+    grad_pl = tuple(Partial() if pl == Shard(0) else t
+                    for pl, t in zip(ids_pl, tpl))
+
+    def local(tbl, ids):
+        if not any(vocab):
+            return tbl[ids]
+        rows = ids - lo
+        hit = (rows >= 0) & (rows < tbl.shape[0])
+        out = tbl[rows.clamp(0, tbl.shape[0] - 1)]
+        return torch.where(hit[..., None], out,
+                           torch.zeros((), dtype=out.dtype, device=out.device))
+
+    ids_in = ids_pl if isinstance(ids, DTensor) else None
+    return local_map(local, out_placements=(out_pl,),
+                     in_placements=(tpl, ids_in),
+                     in_grad_placements=(grad_pl, ids_in),
+                     redistribute_inputs=True, device_mesh=mesh)(table, ids)
 
 
 def lm_logits(cfg: ModelConfig, params: Params,
               x: torch.Tensor) -> torch.Tensor:
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return torch.einsum("bsd,dv->bsv", x, head)
+    head = L.gathered(params["embed"], "vocab", "fsdp").T \
+        if cfg.tie_embeddings else L.gathered(params["lm_head"], "fsdp",
+                                              "vocab")
+    logits = torch.einsum("bsd,dv->bsv", x, head)
+    return shard(logits, "batch", None, "vocab")
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each position's negative log-likelihood, over fp32 logits."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    return lse - ll
+
+
+def _row_nll(logits: DTensor, labels: torch.Tensor) -> DTensor:
+    """``_nll`` of DTensor logits ``[B, S, V]``, computed row by row on the
+    ranks that hold the rows (the batch shards stay; a vocab shard is
+    gathered first): the same arithmetic per row as on one device, where
+    DTensor's own label gather would differentiate through a replicated
+    zero gradient of the whole logits."""
+    rows = tuple(p if p == Shard(0) else Replicate()
+                 for p in logits.placements)
+    return local_map(_nll, out_placements=(rows,),
+                     in_placements=(rows, rows), redistribute_inputs=True,
+                     device_mesh=logits.device_mesh)(logits, labels)
 
 
 def xent_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
               mask: torch.Tensor | None = None) -> torch.Tensor:
     """Mean next-token cross entropy over fp32 logits (masked mean when a
-    mask is given)."""
-    lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
-    nll = lse - ll
+    mask is given). DTensor logits take each row's loss on the rank that
+    holds the row (``_row_nll``)."""
+    nll = _row_nll(logits, labels) if isinstance(logits, DTensor) \
+        else _nll(logits, labels)
     if mask is not None:
         nll = nll * mask
         return nll.sum() / torch.clamp(mask.sum(), min=1.0)
@@ -510,6 +643,7 @@ def xent_loss_chunked(cfg: ModelConfig, params: Params, hidden: torch.Tensor,
     def chunk_nll(h, y, m):
         # bf16 products are exact in fp32: fp32 logits of bf16 operands
         lf = torch.einsum("bsd,dv->bsv", h.float(), head.float())
+        lf = shard(lf, "batch", None, "vocab")
         lse = torch.logsumexp(lf, dim=-1)
         ll = torch.gather(lf, -1, y.long()[..., None])[..., 0]
         return ((lse - ll) * m).sum()

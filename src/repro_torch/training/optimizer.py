@@ -47,8 +47,8 @@ def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init_opt_state(params: Any) -> dict:
-    zeros32 = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
+    # zeros_like: a DTensor parameter's moments share its placement
+    zeros32 = lambda p: torch.zeros_like(p, dtype=torch.float32)
     device = tree_leaves(params)[0].device
     return {
         "m": tree_map(zeros32, params),

@@ -4,10 +4,12 @@ accumulation in fp32, remat and AdamW.
 The reference differentiates ``Model.loss_fn`` with ``jax.value_and_grad``
 and scans microbatches; here ``torch.autograd.grad`` takes the gradient of
 the same loss with respect to every parameter leaf and a Python loop
-accumulates. The optimizer updates in place (``optimizer``). Gradient
-reduction across data-parallel ranks is the mesh's (ROADMAP Queue A item
-11); ``dp_compress`` is carried and unused, exactly as in the reference,
-whose step never calls ``compression.reduce_gradients`` either.
+accumulates. The optimizer updates in place (``optimizer``). On a mesh the
+parameters are DTensors and the gradient reduction across data-parallel
+ranks is DTensor's, pinned to each parameter's placement
+(``constrain_grads_like_params``); ``dp_compress`` is carried and unused,
+exactly as in the reference, whose step never calls
+``compression.reduce_gradients`` either.
 """
 from __future__ import annotations
 
@@ -16,19 +18,34 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.model import Model
 from repro_torch.models.spec import TensorSpec, tree_leaves, tree_map, \
     tree_map_spec
+from repro_torch.sharding.rules import current_context, placements, resolve
 from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
                                             init_opt_state)
 
 
 def constrain_grads_like_params(model: Model, grads: Any) -> Any:
-    """The reference pins each gradient to its parameter's sharding so SPMD
-    emits a reduce-scatter; outside a sharding context it is a no-op, and
-    the port runs on one device, so here it always is."""
-    return grads
+    """Pin each gradient to its parameter's placement: a gradient still
+    pending as a ``Partial`` sum over the data axes becomes the
+    reduce-scatter onto the parameter's shards, not a full all-reduce.
+    No-op outside a sharding context (single-device runs)."""
+    mesh, rules = current_context()
+    if not isinstance(mesh, DeviceMesh) or rules is None:
+        return grads
+
+    def pin(g, ts):
+        if not isinstance(g, DTensor):
+            return g
+        want = placements(resolve(ts.shape, ts.logical, rules, mesh), mesh)
+        return g if tuple(g.placements) == want else g.redistribute(
+            g.device_mesh, want)
+
+    return tree_map(pin, grads, model.spec)
 
 
 @contextlib.contextmanager
@@ -82,12 +99,15 @@ def build_train_step(model: Model, tcfg: TrainConfig) -> Callable:
 
     def _step(params, opt_state, batch):
         if tcfg.microbatches > 1:
-            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                  device=p.device), params)
+            gsum = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                            params)
             lsum = torch.zeros((), dtype=torch.float32,
                                device=tree_leaves(params)[0].device)
             for i in range(tcfg.microbatches):
                 loss, g = grad_fn(params, {k: v[i] for k, v in batch.items()})
+                # on a mesh, each microbatch's gradient meets the sum in
+                # its parameter's placement (in place, no layout change)
+                g = constrain_grads_like_params(model, g)
                 for a, b in zip(tree_leaves(gsum), tree_leaves(g)):
                     a.add_(b.float())
                 lsum = lsum + loss

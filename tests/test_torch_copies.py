@@ -93,10 +93,10 @@ def _class_source(path: Path, name: str) -> str:
 
 def test_elastic_plan_copies_the_reference():
     """``ft/elastic.py`` keeps the reference's ``ElasticPlan`` as it is,
-    less its ``make_mesh`` (a mesh is ROADMAP Queue A item 11); ``resume``
-    is the port's own (one torch device)."""
+    ``make_mesh`` included, with its import rewritten to the port's
+    ``launch.mesh``; ``resume`` is the port's own (a mesh of the ranks
+    that exist, on the device the caller names)."""
     ref = _class_source(SRC / "repro" / "ft" / "elastic.py", "ElasticPlan")
     port = _class_source(SRC / "repro_torch" / "ft" / "elastic.py",
                          "ElasticPlan")
-    cut = ref.index("\n\n    def make_mesh(self):")
-    assert port == ref[:cut]
+    assert port == ref.replace("from repro.", "from repro_torch.")

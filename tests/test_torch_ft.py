@@ -33,7 +33,8 @@ from repro_torch.ft import checkpoint as ckpt  # noqa: E402
 from repro_torch.ft import elastic  # noqa: E402
 from repro_torch.ft.watchdog import StepWatchdog, WatchdogConfig  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
-from repro_torch.models.spec import params_from_numpy, tree_leaves  # noqa: E402
+from repro_torch.models.spec import (params_from_numpy, tree_leaves,  # noqa: E402
+                                     tree_map)
 from repro_torch.training import compression as C  # noqa: E402
 from repro_torch.training import optimizer as O  # noqa: E402
 from repro_torch.training.train_loop import opt_state_spec  # noqa: E402
@@ -217,14 +218,24 @@ def test_elastic_plan_factors_as_reference(n):
 
 
 def test_elastic_resume_onto_one_device(tmp_path, models):
+    """The latest checkpoint restores onto the mesh of the ranks that exist
+    (one, on a gloo group the test ends): DTensors placed by the rules,
+    equal to the reference's parameters."""
+    from repro_torch.launch import mesh as M
+
     jm, jp, tm, tp = models
     d = str(tmp_path / "ck")
     jckpt.save_checkpoint(d, 1, jp)
     ckpt.save_checkpoint(d, 2, tp, extra={"step": 2})
-    params, extra, plan = elastic.resume(
-        reduce_config(get_config(ARCH), layers=2), d, "cpu")
-    assert extra == {"step": 2} and plan.mesh_shape == (1, 1)
-    _equal_trees(params, jp)
+    M.destroy()
+    try:
+        params, extra, mesh = elastic.resume(
+            reduce_config(get_config(ARCH), layers=2), d, "cpu")
+        assert extra == {"step": 2} and mesh.shape == (1, 1)
+        assert mesh.mesh_dim_names == ("data", "model")
+        _equal_trees(tree_map(lambda t: t.full_tensor(), params), jp)
+    finally:
+        M.destroy()
     with pytest.raises(FileNotFoundError):
         elastic.resume(reduce_config(get_config(ARCH), layers=2),
                        str(tmp_path / "none"), "cpu")

@@ -523,8 +523,30 @@ def test_token_stream_bitwise_equal_to_reference(arch):
             w = np.asarray(want[key])
             assert got[key].numpy().dtype == w.dtype
             np.testing.assert_array_equal(got[key].numpy(), w)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        SyntheticTokenStream(cfg, shape, DataConfig(), mesh=object())
+    # on a 1x1 mesh every leaf is a DTensor split by rows over "data",
+    # whole on "model", float leaves in bf16 as the reference's mesh path
+    # makes them; its rows are the same batch
+    from repro_torch.launch import mesh as M
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    M.destroy()
+    try:
+        mesh = M.make_mesh_compat((1, 1), ("data", "model"), "cpu")
+        placed = SyntheticTokenStream(cfg, shape, DataConfig(seed=4),
+                                      mesh).batch(5)
+        for key, t in placed.items():
+            assert isinstance(t, DTensor)
+            assert tuple(t.placements) == (Shard(0), Replicate())
+            full = t.full_tensor()
+            if full.is_floating_point():
+                assert full.dtype == torch.bfloat16
+                np.testing.assert_array_equal(
+                    full.float().numpy(),
+                    got[key].bfloat16().float().numpy())
+            else:
+                assert torch.equal(full, got[key])
+    finally:
+        M.destroy()
 
 
 def test_train_cli_loss_falls_and_resumes(tmp_path, capsys):
@@ -540,8 +562,18 @@ def test_train_cli_loss_falls_and_resumes(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "resumed from step 6" in out and "device cpu" in out
     assert len(resumed["losses"]) == 2 and np.isfinite(resumed["losses"]).all()
+    # --mesh 2x1 runs in one process on the fake backend (rank 0's local
+    # numbers), and is refused on a real one, whose world is one rank
+    fake = train.main(["--device", "cpu", "--reduced", "--mesh", "2x1",
+                       "--backend", "fake", "--batch", "2", "--seq", "16",
+                       "--steps", "2"])
+    assert len(fake["losses"]) == 2 and np.isfinite(fake["losses"]).all()
+    assert "mesh 2x1 on fake" in capsys.readouterr().out
+    assert not torch.distributed.is_initialized()
     with pytest.raises(SystemExit):
         train.main(["--device", "cpu", "--reduced", "--mesh", "2x1"])
+    assert "needs 2 processes" in capsys.readouterr().err
+    assert not torch.distributed.is_initialized()
 
 
 # ---------------------------------------------------------------------------
