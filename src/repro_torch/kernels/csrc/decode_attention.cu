@@ -19,8 +19,10 @@
 //     memory with 16-byte cp.async (K and V in two groups, so V is still
 //     arriving while the scores are computed), holds the g = H / V query
 //     rows of its KV head, so every K/V byte is read once for all of them,
-//     computes each score with D / 8 lanes splitting D and a shuffle
-//     reduction, takes the fp32 softmax of the span's scores and writes the
+//     computes each score with a group of lanes splitting D (D / 8 of them
+//     hold 8 values each; the group is rounded up to a power of two, and a
+//     lane past D adds zero) and a shuffle reduction, takes the fp32
+//     softmax of the span's scores and writes the
 //     partial (m, l, acc [g, D]) in fp32 to a scratch the wrapper
 //     allocates. A span with no live token writes m = -1e30, l = 0.
 //  2. decode_combine_kernel, grid (B, H): merges the partials of each
@@ -105,6 +107,11 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, PoolView pv,
   }
 }
 
+// kPadLanes: D / 8 is not a power of two, so the score groups carry lanes
+// past D; a power-of-two D compiles without the test (the test at run time
+// for every D took 1.13x the time at D 256 and 1.02x at D 128, one H100,
+// kernels/ab_decode.py)
+template <bool kPadLanes>
 __global__ void __launch_bounds__(kThreads) decode_split_kernel(
     const __nv_bfloat16* __restrict__ q, PoolView kv_k, PoolView kv_v,
     const int* __restrict__ block_tables, const int* __restrict__ context_lens,
@@ -166,17 +173,21 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
   cp_async_wait<1>();  // K is here; V may still be in flight
   __syncthreads();
 
-  // scores: a group of D / 8 lanes per key row, each lane 8 of its D
+  // scores: a group of `lanes` lanes per key row, each lane 8 of its D
   // values, kRows query rows at a time so their shuffle reductions
-  // interleave; every lane of a warp runs the same number of rounds, so
-  // the shuffles stay converged
-  const int lanes = D / 8;
+  // interleave; `lanes` is D / 8 rounded up to a power of two, and a lane
+  // at or past D (li * 8 >= D) adds zero. Every lane of a warp runs the
+  // same number of rounds, so the shuffles stay converged
+  const int chunks = D / 8;
+  int lanes = 1;
+  while (lanes < chunks) lanes <<= 1;
   const int groups = kThreads / lanes;
   const int grp = threadIdx.x / lanes, li = threadIdx.x - grp * lanes;
+  const bool in_d = !kPadLanes || li < chunks;
   for (int base = 0; base < n; base += groups) {
     const int t = base + grp;
     float kf[8];
-    if (t < n) {
+    if (t < n && in_d) {
       unpack8(*reinterpret_cast<const uint4*>(ks + t * D + li * 8), kf);
     } else {
 #pragma unroll
@@ -186,10 +197,14 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
       float dot[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
-        const float4* qr = reinterpret_cast<const float4*>(qs + (g0 + r) * D + li * 8);
-        const float4 a = qr[0], c = qr[1];
-        dot[r] = a.x * kf[0] + a.y * kf[1] + a.z * kf[2] + a.w * kf[3]
-               + c.x * kf[4] + c.y * kf[5] + c.z * kf[6] + c.w * kf[7];
+        if (in_d) {
+          const float4* qr = reinterpret_cast<const float4*>(qs + (g0 + r) * D + li * 8);
+          const float4 a = qr[0], c = qr[1];
+          dot[r] = a.x * kf[0] + a.y * kf[1] + a.z * kf[2] + a.w * kf[3]
+                 + c.x * kf[4] + c.y * kf[5] + c.z * kf[6] + c.w * kf[7];
+        } else {
+          dot[r] = 0.0f;
+        }
       }
       for (int o = lanes >> 1; o > 0; o >>= 1) {
 #pragma unroll
@@ -228,8 +243,8 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
   __syncthreads();
 
   // acc[gi, 8c .. 8c+7] = sum_t p[gi, t] v[t, 8c .. 8c+7]
-  for (int i = threadIdx.x; i < g * lanes; i += kThreads) {
-    const int gi = i / lanes, c = i - gi * lanes;
+  for (int i = threadIdx.x; i < g * chunks; i += kThreads) {
+    const int gi = i / chunks, c = i - gi * chunks;
     const float* pr = sc + gi * span;
     float acc[8];
 #pragma unroll
@@ -313,8 +328,8 @@ size_t split_smem_bytes(int g, int D, int page) {
 extern "C" int paged_decode_pages_per_split() { return kPagesPerSplit; }
 
 // q [B,H,D]; pages addressed as base + frame*sf + token*st + head*sh + d
-// (16-byte aligned, strides in multiples of 8 elements, D / 8 a power of
-// two up to 32); block_tables [B,nb] int32; context_lens [B] int32; part
+// (16-byte aligned, strides in multiples of 8 elements, D a multiple of 8
+// up to 256); block_tables [B,nb] int32; context_lens [B] int32; part
 // an fp32 scratch of B*V*S*g*(D+2) floats, S = ceil(nb / pages per split);
 // out [B,H,D] contiguous; S up to 6144 (the combine's shared memory).
 // Launches both kernels on `stream`; returns cudaGetLastError().
@@ -326,16 +341,19 @@ extern "C" int paged_decode_attention_bf16(
   const int g = H / V;
   const int S = (nb + kPagesPerSplit - 1) / kPagesPerSplit;
   const size_t smem = split_smem_bytes(g, D, page);
+  const int chunks = D / 8;
+  const bool pad = (chunks & (chunks - 1)) != 0;
+  auto split = pad ? decode_split_kernel<true> : decode_split_kernel<false>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decode_split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        split, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const PoolView kv_k{static_cast<const __nv_bfloat16*>(k), k_sf, k_st, k_sh};
   const PoolView kv_v{static_cast<const __nv_bfloat16*>(v), v_sf, v_st, v_sh};
-  decode_split_kernel<<<dim3(B, V, S), kThreads, smem, st>>>(
+  split<<<dim3(B, V, S), kThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), kv_k, kv_v,
       static_cast<const int*>(block_tables), static_cast<const int*>(context_lens),
       static_cast<float*>(part), H, V, D, page, nb, npages, window, S, q_sb,

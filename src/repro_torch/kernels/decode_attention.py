@@ -34,8 +34,10 @@ NEG_INF = -1e30
 # table pages per split: kPagesPerSplit of csrc/decode_attention.cu, which
 # the wrapper checks against the built library
 PAGES_PER_SPLIT = 4
-# D / 8 lanes split each key row, so D / 8 is a power of two up to a warp
-HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+# the head dims the kernel is built and checked for: D / 8 lanes split each
+# key row, rounded up to a power of two up to a warp (h2o-danube-3-4b's 120
+# runs 15 lanes of 16, the 16th adding zero)
+HEAD_DIMS = (8, 16, 32, 64, 120, 128, 256)
 
 # kernel launches since the last reset (the main-path evidence)
 launches = 0

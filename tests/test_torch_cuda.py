@@ -109,6 +109,77 @@ def test_decode_kernel_bitwise_repeatable_and_batch_independent(cuda):
             assert torch.equal(alone[0], first[i]), (window, i)
 
 
+# head_dim 120 (h2o-danube-3-4b): 15 lanes of 8 values each, rounded up to
+# 16 for the score reduction, the 16th lane adding zero
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,vh", [(32, 8), (8, 8), (16, 2)])   # danube: g 4
+@pytest.mark.parametrize("window", [0, 50])      # 50: an edge inside a split
+def test_decode_kernel_d120(cuda, h, vh, window):
+    """head_dim 120 over split edges (contexts at and around one split's
+    span, one token and none, out-of-range table entries past the
+    context), g 4 as danube's 32 heads over 8, g 1 and g 8, with and
+    without a window whose edge falls inside a split; two launches
+    bitwise."""
+    rng = np.random.default_rng(12)
+    page, d, nb = 16, 120, 12
+    span = DA.PAGES_PER_SPLIT * page
+    lens = [span, span - 1, span + 1, 1, 0, 2 * span + 7, nb * page,
+            nb * page + 40]
+    q, kp, vp, bt = _decode_inputs(rng, cuda, len(lens), h, vh, d, page, nb)
+    bt[0, DA.PAGES_PER_SPLIT:] = 99_999
+    bt[1, DA.PAGES_PER_SPLIT:] = -3
+    bt, cl = (torch.from_numpy(x).to(cuda)
+              for x in (bt, np.array(lens, np.int32)))
+    before = DA.launches
+    got = DA.paged_decode_attention(q, kp, vp, bt, cl, window=window)
+    assert DA.launches == before + 1
+    want = DA.paged_decode_attention_plain(q, kp, vp, bt, cl, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+    assert torch.count_nonzero(got[4]) == 0                # cl = 0
+    assert torch.equal(got, DA.paged_decode_attention(q, kp, vp, bt, cl,
+                                                      window=window))
+
+
+@pytest.mark.cuda
+def test_decode_kernel_d120_danube_shape_bitwise(cuda):
+    """danube's decode shape (B 8, H 32 over V 8, D 120, 64 table pages)
+    against the plain version, and each row bitwise its request alone."""
+    rng = np.random.default_rng(13)
+    q, kp, vp, bt = _decode_inputs(rng, cuda, 8, 32, 8, 120, 16, 64,
+                                   layers=4)
+    bt = torch.from_numpy(bt).to(cuda)
+    cl = torch.from_numpy(rng.integers(1, 64 * 16 + 1, 8).astype(np.int32)
+                          ).to(cuda)
+    for window in (0, 100):
+        first = DA.paged_decode_attention(q, kp, vp, bt, cl, window=window)
+        want = DA.paged_decode_attention_plain(q, kp, vp, bt, cl,
+                                               window=window)
+        torch.testing.assert_close(first.float(), want.float(), **TOL)
+        assert torch.equal(first, DA.paged_decode_attention(
+            q, kp, vp, bt, cl, window=window))
+        for i in range(8):
+            alone = DA.paged_decode_attention(q[i:i + 1], kp, vp,
+                                              bt[i:i + 1], cl[i:i + 1],
+                                              window=window)
+            assert torch.equal(alone[0], first[i]), (window, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [96, 136, 264])
+def test_decode_kernel_refuses_head_dims_it_lacks(cuda, d):
+    """A head dim outside ``HEAD_DIMS`` raises before any launch: 96 and
+    136 (multiples of 8 it is not checked at) and 264 (past a warp of
+    lanes)."""
+    pages = torch.zeros((5, 8, 1, d), dtype=torch.bfloat16, device=cuda)
+    q = torch.zeros((2, 4, d), dtype=torch.bfloat16, device=cuda)
+    bt = torch.zeros((2, 2), dtype=torch.int32, device=cuda)
+    cl = torch.ones((2,), dtype=torch.int32, device=cuda)
+    before = DA.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        DA.paged_decode_attention(q, pages, pages, bt, cl)
+    assert DA.launches == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,vh,sq,sk,d,kw", [
     (1, 8, 2, 96, 96, 64, {}), (2, 4, 1, 33, 130, 16, {}),
