@@ -142,7 +142,15 @@ class WeightStream:
     """Two-slot device ring fed from the pinned-host offloaded stack
     ``[G, ...]`` on a side CUDA stream (see the module docstring). A walk
     calls ``begin``, then per group ``issue``, ``acquire`` and ``release``
-    in group order, then ``end``."""
+    in group order, then ``end``.
+
+    ``copies`` counts the units issued and ``copy_bytes`` their bytes.
+    With ``timed`` set, a walk also records three timing events per group
+    ``g``: ``copy_start`` on the side stream once the slot is free,
+    ``copy_end`` beside ``ready``, and ``reach`` on the compute stream just
+    before it waits for the copy. They are external events, so a CUDA
+    graph captured from a timed walk records them at every replay;
+    ``timings`` reads them once the walk has completed."""
 
     def __init__(self, host_units: Any, device: torch.device):
         self.host = host_units
@@ -160,7 +168,23 @@ class WeightStream:
         self.fork = torch.cuda.Event()
         self.join = torch.cuda.Event()
         self._released = [False, False]   # free[slot] recorded this walk
+        self._group = [0, 0]              # the group issued into each slot
         self.copies = 0
+        self.unit_bytes = sum(t.numel() * t.element_size()
+                              for t in tree_leaves(self.slots[0]))
+        self.copy_bytes = 0
+        self.timed = False
+        self._events: tuple[list, list, list] | None = None
+
+    def _timing_events(self) -> tuple[list, list, list]:
+        """(copy_start, copy_end, reach), one event per group each, made
+        at the first timed walk."""
+        if self._events is None:
+            groups = tree_leaves(self.host)[0].shape[0]
+            self._events = tuple(
+                [torch.cuda.Event(enable_timing=True, external=True)
+                 for _ in range(groups)] for _ in range(3))
+        return self._events
 
     def begin(self) -> None:
         """Fork: the side stream starts after the work queued on the
@@ -178,20 +202,30 @@ class WeightStream:
     def issue(self, g: int) -> int:
         """Start copying unit ``g`` into its ring slot; returns the slot."""
         slot = g % 2
+        self._group[slot] = g
+        timing = self._timing_events() if self.timed else None
         with torch.cuda.stream(self.stream):
             if self._released[slot]:
                 # the compute that last read this slot must finish before
                 # the slot is rewritten
                 self.stream.wait_event(self.free[slot])
+            if timing:
+                timing[0][g].record(self.stream)
             tree_map(lambda d, h: d.copy_(h[g], non_blocking=True),
                      self.slots[slot], self.host)
             self.ready[slot].record(self.stream)
+            if timing:
+                timing[1][g].record(self.stream)
         self.copies += 1
+        self.copy_bytes += self.unit_bytes
         return slot
 
     def acquire(self, slot: int) -> Any:
         """The slot's unit, once the compute stream has waited for its copy."""
-        torch.cuda.current_stream(self.device).wait_event(self.ready[slot])
+        compute = torch.cuda.current_stream(self.device)
+        if self.timed:
+            self._timing_events()[2][self._group[slot]].record(compute)
+        compute.wait_event(self.ready[slot])
         return self.slots[slot]
 
     def release(self, slot: int) -> None:
@@ -204,6 +238,14 @@ class WeightStream:
         operation (a capture fails on a fork left unjoined)."""
         self.join.record(self.stream)
         torch.cuda.current_stream(self.device).wait_event(self.join)
+
+    def timings(self) -> list[tuple[float, float]]:
+        """Per group of the last timed walk, once it has completed: the
+        copy's ms (``copy_end - copy_start``) and how long the compute
+        stream waited for it (``max(0, copy_end - reach)``)."""
+        start, end, reach = self._timing_events()
+        return [(s.elapsed_time(e), max(0.0, r.elapsed_time(e)))
+                for s, e, r in zip(start, end, reach)]
 
 
 def offload_memory_kind_fn(path: tuple) -> str | None:
@@ -348,8 +390,8 @@ class OffloadRuntime:
         in place, and each replay counts its prefetch copies. The capture's
         eager warm-up call is undone, so the caches hold what they held."""
         saved = tree_map(torch.clone, caches_split)
-        counters = ([(self._stream, "copies")] if self._stream is not None
-                    else [])
+        counters = ([(self._stream, "copies"), (self._stream, "copy_bytes")]
+                    if self._stream is not None else [])
         graph = graphs.Graphed(
             functools.partial(self.decode_step, params_split),
             (tokens, pos, caches_split, enc_pos), counters)

@@ -186,9 +186,10 @@ def main(argv=None) -> dict:
                          "'round_robin' is the byte-traffic baseline")
     ap.add_argument("--trace-out", default=None,
                     help="write the iteration trace as Chrome trace-event "
-                         "JSON (load in Perfetto / chrome://tracing); also "
-                         "runs the conservation auditor and exits nonzero "
-                         "on any invariant violation")
+                         "JSON (load in Perfetto / chrome://tracing), with "
+                         "the engine's wall-clock spans beside the modeled "
+                         "clock; also runs the conservation auditor and "
+                         "exits nonzero on any invariant violation")
     ap.add_argument("--metrics-out", default=None,
                     help="write the full structured trace (repro-trace/v1 "
                          "schema: per-iteration records, request events, "
@@ -238,8 +239,11 @@ def main(argv=None) -> dict:
                         incremental_prefill=args.incremental_prefill,
                         autotune=args.autotune)
     slos = [0.002 * k for k in range(1, 120)]
-    build = lambda name, c: build_engine(name, cfg, hw, c, slos,
-                                         device=args.device)
+
+    def build(name: str, c: EngineConfig) -> ServingEngine:
+        e = build_engine(name, cfg, hw, c, slos, device=args.device)
+        e.trace.spans_on = args.trace_out is not None
+        return e
     eng = None
     if not args.disagg:
         eng = build("e0", ecfg)

@@ -59,6 +59,21 @@ the reference's jitted step: one graph per (interval, page pool,
 placement), captured at the first step that needs it, its inputs copied
 into static buffers before each replay (``_decode_step_graph``).
 
+With ``trace.spans_on`` the engine records wall-clock spans
+(``serving.spans``): per ``step()`` the root ``engine.step``, inside it
+``sched.plan`` (the plan and its rejections, resumes and preemptions),
+per one-shot admission ``engine.prefill`` (``prefill.compute``,
+``prefill.scatter``, ``prefill.logits_to_host``), ``engine.chunks``,
+``kv.stream_in`` (promotions and COW copies; the host pages streamed into
+the slab), ``decode.tables``, ``decode.graph_capture``, ``decode.replay``,
+``decode.logits_to_host``, ``kv.writeback``, ``decode.sample`` and
+``engine.record``; ``engine.set_interval`` and ``engine.place`` wherever
+they happen; and per request ``request.queued``, from ``submit`` to the
+scheduler's decision on it. The device calls (``prefill.compute``,
+``decode.replay``) carry their CUDA-event ms and what the weight ring read
+in them: bytes and unit copies and, on a GPU, each group's copy and stall
+ms (``WeightStream.timed``).
+
 For a fleet (``serving.fleet``), an instance exports and imports parked
 requests (cross-instance migration) and, in a disaggregated fleet, hands
 freshly prefilled requests off to a decode instance; the tickets carry the
@@ -102,8 +117,9 @@ from repro_torch.serving.scheduler import (ActiveInfo, IterationOutcome,
                                            PlannedResume, PrefillChunk,
                                            Scheduler, SchedulerConfig,
                                            SchedulerView)
+from repro_torch.serving.spans import SpanRecorder
 from repro_torch.serving.telemetry import (IterationRecord, SlotGauge,
-                                           TraceRecorder, summarize_latency)
+                                           summarize_latency)
 
 
 def place_weights(model: Model, params: Any, plan: OffloadPlan,
@@ -368,8 +384,9 @@ class ServingEngine:
 
         # iteration-level telemetry plane (serving.telemetry): always on —
         # records are tiny and the differential suites audit every run
-        self.trace = TraceRecorder(name, ecfg.max_batch, self.kv.page_bytes)
+        self.trace = SpanRecorder(name, ecfg.max_batch, self.kv.page_bytes)
         self.trace._footer_fn = self._trace_footer
+        self._queued: dict[int, Any] = {}   # rid -> its open request.queued
         self.cow_in_bytes_total = 0.0
         self.cow_out_bytes_total = 0.0
 
@@ -442,6 +459,10 @@ class ServingEngine:
             if self.tuner is not None:
                 self.tuner.note_refusal(interval)
             return False
+        tr = self.trace
+        span = (tr.open("engine.set_interval", **{"from": self.interval,
+                                                  "to": interval})
+                if tr.spans_on else None)
         self.interval = interval
         self.interval_switches += 1
         self._release_placement()
@@ -470,6 +491,8 @@ class ServingEngine:
             got = ops.gather_kv_pages(self.pool, [o for o, _ in moves])
             self.pool = ops.scatter_kv_pages(self.pool,
                                              [n for _, n in moves], got)
+        if span:
+            tr.close(span)
         return True
 
     def _rt(self) -> tuple[OffloadRuntime, Any]:
@@ -477,13 +500,21 @@ class ServingEngine:
         placed on first use. One placement is held at a time: an interval
         switch releases the previous one, so the device holds the resident
         units the HBM budget accounts for and no stale ones."""
+        tr = self.trace
         if self._runtime is None or self._runtime.plan.interval != \
                 self.interval:
             self._release_placement()
+            span = (tr.open("engine.place", interval=self.interval)
+                    if tr.spans_on else None)
             self._runtime, self._placed = place_weights(
                 self.model, self.params, self._plan(self.interval),
                 self.device)
             self._placements += 1
+            if span:
+                tr.close(span, host_bytes=self._runtime.host_weight_bytes)
+        if self._runtime._stream is not None:
+            # the ring times its copies while spans are on
+            self._runtime._stream.timed = tr.spans_on
         return self._runtime, self._placed
 
     def adopt_placement(self, rt: OffloadRuntime, placed: Any) -> None:
@@ -699,7 +730,17 @@ class ServingEngine:
 
     def submit(self, req: Request) -> None:
         req.submitted_s = self.clock_s
+        if self.trace.spans_on:
+            self._queued[req.rid] = self.trace.open_request(
+                "request.queued", req.rid)
         self.scheduler.submit(req)
+
+    def _end_queued(self, rid: int, admitted: bool) -> None:
+        """Close request ``rid``'s ``request.queued`` span at the
+        scheduler's decision on it."""
+        span = self._queued.pop(rid, None)
+        if span:
+            self.trace.close(span, admitted=admitted)
 
     def _active_batch(self) -> int:
         return int(self.active.sum())
@@ -718,6 +759,8 @@ class ServingEngine:
         preemption write-backs, resume promotions, admissions (one-shot
         prefill for non-chunked ones). Chunk compute is applied by ``step``
         so its time rides the decode iteration."""
+        tr = self.trace
+        span = tr.open("sched.plan") if tr.spans_on else None
         plan = self.scheduler.plan(self._view())
         if self.data_plane is not None:
             # iteration boundary for the copy-stage engine: complete last
@@ -729,14 +772,20 @@ class ServingEngine:
         for req in plan.rejections:
             self.trace.event("reject", req.rid, self.clock_s,
                              reason=req.reject_reason)
+            if tr.spans_on:
+                self._end_queued(req.rid, admitted=False)
         # data-plane order MUST follow planning order: resumes were planned
         # before preemptions, so a park's host destination may be the very
         # slot a resume promotion vacated — the resume must read its host
         # bytes before the park overwrites them
         self._apply_resumes(plan.resumes)
         self._apply_preemptions(plan.preemptions)
+        if span:
+            tr.close(span)
         for adm in plan.admissions:
             adm.req.admitted_s = self.clock_s
+            if tr.spans_on:
+                self._end_queued(adm.req.rid, admitted=True)
             self.trace.event("admit", adm.req.rid, self.clock_s,
                              slot=adm.slot, chunked=adm.chunked,
                              certified_ttft_s=adm.certified_ttft_s)
@@ -745,7 +794,12 @@ class ServingEngine:
                 adm.req.slot = adm.slot
                 self.slot_req[adm.slot] = adm.req
             else:
+                span = (tr.open("engine.prefill", rid=adm.req.rid,
+                                prompt_len=adm.req.prompt_len)
+                        if tr.spans_on else None)
                 self._prefill_into_slot(adm.req, adm.slot)
+                if span:
+                    tr.close(span)
         return plan
 
     def _apply_preemptions(self, items: list[PlannedPreemption]) -> None:
@@ -1174,19 +1228,41 @@ class ServingEngine:
                                           0.0, host_spill_bytes)
 
     # -------------------------------------------------------------- prefill --
-    def _device_call(self, log: list[float], fn, *args, **kwargs):
+    def _device_call(self, log: list[float], name: str, fn, *args,
+                     **kwargs):
         """Run ``fn``; on a GPU, append its stream time in ms to ``log``
         (CUDA events around the call, read after it completes: the time
-        from the first queued operation to the last, host gaps included)."""
+        from the first queued operation to the last, host gaps included).
+        With spans on, the call is the span ``name``, which carries that
+        time (``ms``) and what the weight ring read in the call: its bytes
+        and unit copies and, when the ring timed them, each group's copy
+        and stall ms (``WeightStream.timings``)."""
+        tr = self.trace
+        span = tr.open(name) if tr.spans_on else None
+        ring = self._runtime._stream if span and self._runtime else None
+        if ring is not None:
+            bytes0, copies0 = ring.copy_bytes, ring.copies
         if self.device.type != "cuda":
-            return fn(*args, **kwargs)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn(*args, **kwargs)
-        end.record()
-        end.synchronize()
-        log.append(start.elapsed_time(end))
+            out = fn(*args, **kwargs)
+        else:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            end.synchronize()
+            log.append(start.elapsed_time(end))
+        if span:
+            if self.device.type == "cuda":
+                span.attrs["ms"] = log[-1]
+            if ring is not None:
+                span.attrs.update(ring_bytes=ring.copy_bytes - bytes0,
+                                  ring_copies=ring.copies - copies0)
+                if ring.timed and ring.copies > copies0:
+                    got = ring.timings()
+                    span.attrs.update(ring_copy_ms=[c for c, _ in got],
+                                      ring_stall_ms=[w for _, w in got])
+            tr.close(span)
         return out
 
     def _bucketed_prefill(self, tokens: np.ndarray, cache_len: int):
@@ -1205,8 +1281,8 @@ class ServingEngine:
         padded[:s] = np.asarray(tokens, np.int32)
         inputs = {"tokens": torch.as_tensor(padded, device=self.device)[None]}
         return self._device_call(
-            self.prefill_ms, rt.prefill, params, inputs, cache_len=bucket,
-            last_pos=s - 1)
+            self.prefill_ms, "prefill.compute", rt.prefill, params, inputs,
+            cache_len=bucket, last_pos=s - 1)
 
     def _prefill_into_slot(self, req: Request, slot: int) -> None:
         req.state = State.PREFILLING
@@ -1220,7 +1296,11 @@ class ServingEngine:
                                                     req.prompt_len)
         req.prefill_pos = req.prompt_len
         self.prefill_tokens_computed += req.prompt_len
+        tr = self.trace
+        span = tr.open("prefill.scatter") if tr.spans_on else None
         self._scatter_prefill_kv(req, caches1)
+        if span:
+            tr.close(span)
         # modeled prefill latency = TTFT (same formula admission checked):
         # only freshly spilled pages cost write-back — dedup'd host pages
         # are already resident
@@ -1231,10 +1311,13 @@ class ServingEngine:
                          dur_s=ttft)
         self.clock_s += ttft
 
+        span = tr.open("prefill.logits_to_host") if tr.spans_on else None
         logits_np = logits[0].float().cpu().numpy()
         self.prefill_log.append((req, slot, logits_np))
         tok = self._greedy(req, logits_np)
         req.generated.append(tok)
+        if span:
+            tr.close(span)
         if req.done:
             # token budget exhausted at prefill (max_new_tokens <= 1): never
             # activate the slot — a decode step would write past the
@@ -1354,7 +1437,7 @@ class ServingEngine:
         rt, params = self._rt()
         dev = lambda a: torch.as_tensor(a, device=self.device)
         logits, self.pool = self._device_call(
-            self.chunk_ms, rt.paged_prefill_chunk, params,
+            self.chunk_ms, "prefill.compute", rt.paged_prefill_chunk, params,
             dev(req.prompt[ch.start:ch.end].astype(np.int32)), ch.start,
             self.pool, dev(bt), ch.end, dev(wf), dev(wo))
         if writeback:
@@ -1576,29 +1659,56 @@ class ServingEngine:
         buf.copy_(host, non_blocking=True)
 
     def _decode_step_graph(self, rt: OffloadRuntime, params: Any):
-        """The decode step captured for the current interval, page pool
-        and placement, captured anew when any of them changed (each
+        """The decode step captured for the current interval, page pool,
+        placement and span switch (a timed ring records its timing events
+        in the graph), captured anew when any of them changed (each
         capture counted in ``decode_graph_captures``). Host KV streaming,
         promotions, COW copies and the write-back stay outside the graph,
         on the same stream, ahead of or after the replay."""
-        key = (self.interval, self.pool.data_ptr(), self._placements)
+        tr = self.trace
+        key = (self.interval, self.pool.data_ptr(), self._placements,
+               tr.spans_on)
         if self._decode_graph is None or self._decode_graph[0] != key:
             self._decode_graph = None
+            span = tr.open("decode.graph_capture") if tr.spans_on else None
             tokens, pos, bt, cl, wf, wo = self._step_inputs[2]
-            counters = ([(rt._stream, "copies")] if rt._stream is not None
-                        else [])
+            counters = ([(rt._stream, "copies"), (rt._stream, "copy_bytes")]
+                        if rt._stream is not None else [])
             graph = self._capture(
                 functools.partial(rt.paged_decode_step, params),
                 (tokens, pos, self.pool, bt, cl, wf, wo), counters)
             self._decode_graph = (key, graph)
             self.decode_graph_captures += 1
+            if span:
+                tr.close(span)
         return self._decode_graph[1]
 
     def step(self, peers: list["ServingEngine"] | None = None,
              link_bw: float | None = None) -> None:
         """One inference iteration: coordinate -> plan -> apply (preempt /
         resume / admit / chunk) -> decode all active slots -> report the
-        outcome to the scheduler."""
+        outcome to the scheduler. With spans on, the iteration is the span
+        ``engine.step``, carrying its record's index, decode batch and
+        interval."""
+        tr = self.trace
+        if not tr.spans_on:
+            self._step(peers, link_bw)
+            return
+        span = tr.open("engine.step")
+        n_rec = len(tr.iterations)
+        try:
+            self._step(peers, link_bw)
+        finally:
+            if len(tr.iterations) > n_rec:
+                rec = tr.iterations[-1]
+                span.attrs.update(iteration=rec.index,
+                                  decode_batch=rec.decode_batch,
+                                  interval=rec.interval)
+            tr.close(span)
+
+    def _step(self, peers: list["ServingEngine"] | None,
+              link_bw: float | None) -> None:
+        tr = self.trace
         self.prefill_log = []
         self.last_decode = None
         t_start = self.clock_s
@@ -1667,10 +1777,15 @@ class ServingEngine:
                 if (req is not None and self.active[slot]
                         and req.state is State.DECODING):
                     self.park_for_handoff(req.rid)
+        span = tr.open("engine.chunks") if tr.spans_on and plan.chunks \
+            else None
         chunk_s, finals = self._run_chunks(plan.chunks)
+        if span:
+            tr.close(span)
         if self._active_batch() == 0:
             # no decode this iteration; chunk compute still advances the
             # clock and the chunked requests' TTFT accrual
+            span = tr.open("engine.record") if tr.spans_on else None
             if plan.chunks:
                 self.clock_s += chunk_s
                 done = self._finish_chunks(plan.chunks, finals, chunk_s)
@@ -1708,12 +1823,15 @@ class ServingEngine:
                 staged_completed_pages=st_completed,
                 occupancy=self.kv.occupancy(),
                 reserve_pages=self.kv.n_reserve_frames()))
+            if span:
+                tr.close(span)
             return
         # KV tier activity of this iteration: promote host pages into freed
         # device frames, stream the rest in for attention, write back any
         # pending demotions (incl. preemption parks) and charge resume
         # promotions. Promotion is never a traffic spike: a promoted page's
         # one-time copy replaces its recurring streamed copy.
+        span = tr.open("kv.stream_in") if tr.spans_on else None
         pend_in_b = self.swap.pending_in_bytes()
         pend_out_b = self.swap.pending_out_bytes()
         pdisk_in_pages = self.kv.pending_disk_in_pages
@@ -1748,33 +1866,51 @@ class ServingEngine:
         # this very decode.
         uncert_in = max(sp.kv_in_bytes - plan.certified_kv_in_bytes, 0.0)
         uncert_out = max(sp.kv_out_bytes - plan.certified_kv_out_bytes, 0.0)
+        if span:
+            tr.close(span, pages=len(sp.promotions) + int(
+                (cow_in + cow_out) // self.kv.page_bytes))
         rt, params = self._rt()
+        span = tr.open("decode.tables") if tr.spans_on else None
         bt, cl, wf, wo, stream_src, stream_dst, writeback = \
             self._build_iteration_tables()
+        tokens_in, pos_in = self.tokens.copy(), self.pos.copy()
+        tables = (tokens_in, pos_in, bt, cl, wf, wo)
+        if self._capture is not None:
+            self._load_step_inputs(tables)
+        if span:
+            tr.close(span)
         if stream_src:
+            span = tr.open("kv.stream_in") if tr.spans_on else None
             self.streamed_pages_peak = max(self.streamed_pages_peak,
                                            len(stream_src))
             self.pool = ops.copy_pages_from_host(self.host_pool, stream_src,
                                                  self.pool, stream_dst)
-        tokens_in, pos_in = self.tokens.copy(), self.pos.copy()
-        tables = (tokens_in, pos_in, bt, cl, wf, wo)
+            if span:
+                tr.close(span, pages=len(stream_src))
         if self._capture is None:
             dev = lambda a: torch.as_tensor(a, device=self.device)
             args = [dev(a) for a in tables]
             logits, self.pool = self._device_call(
-                self.decode_ms, rt.paged_decode_step, params, *args[:2],
-                self.pool, *args[2:])
+                self.decode_ms, "decode.replay", rt.paged_decode_step,
+                params, *args[:2], self.pool, *args[2:])
         else:
-            self._load_step_inputs(tables)
-            logits, _ = self._device_call(
-                self.decode_ms, self._decode_step_graph(rt, params).replay)
+            graph = self._decode_step_graph(rt, params)
+            logits, _ = self._device_call(self.decode_ms, "decode.replay",
+                                          graph.replay)
+        span = tr.open("decode.logits_to_host") if tr.spans_on else None
         logits = logits.float().cpu().numpy()
+        if span:
+            tr.close(span)
         if writeback:
+            span = tr.open("kv.writeback") if tr.spans_on else None
             self._guard_host_writes([hs for hs, _ in writeback])
             got = ops.gather_kv_pages(self.pool,
                                       [f for _, f in writeback]).cpu()
             for (host_slot, _), val in zip(writeback, got):
                 self.host_pool[host_slot] = val
+            if span:
+                tr.close(span, pages=len(writeback))
+        span = tr.open("decode.sample") if tr.spans_on else None
         self.last_decode = {"tokens": tokens_in, "pos": pos_in,
                             "active": self.active.copy(), "logits": logits}
 
@@ -1825,6 +1961,9 @@ class ServingEngine:
                 self.trace.event("finish", req.rid, self.clock_s, slot=slot)
         finished_rids += self._finish_chunks(plan.chunks, finals, dt)
         tokens_out += len(finals)
+        if span:
+            tr.close(span)
+        span = tr.open("engine.record") if tr.spans_on else None
         self.scheduler.note_outcome(IterationOutcome(
             dt_s=dt, finished_rids=finished_rids, tokens_emitted=tokens_out,
             chunks_run=len(plan.chunks), preemptions=len(plan.preemptions),
@@ -1872,6 +2011,8 @@ class ServingEngine:
                               tpot_slo_s=req.tpot_slo_s,
                               headroom_s=req.tpot_slo_s - dt)
                     for slot, req in decode_reqs]))
+        if span:
+            tr.close(span)
 
     def run(self, requests: list[Request], max_iters: int = 10_000,
             peers=None, link_bw=None, submit_all: bool = False) -> dict:
