@@ -810,10 +810,10 @@ def first_replay_probe(eng) -> dict:
     """Queue C 6's first step after a capture, measured apart: the engine's
     decode step captured anew on its last step's inputs (``Graphed``
     uploads the graph at capture), its first four replays timed one by one
-    (CUDA events), beside the engine's own first and later steps. Replays
-    are raw launches: no kernel or copy counter moves. Run after a phase's
-    checks (the replays rewrite the last step's KV slots with the same
-    values)."""
+    (CUDA events), beside the engine's own first and later steps. Each
+    replay primes the weight ring for the next, as the engine's do, and
+    advances the counters. Run after a phase's checks (the replays rewrite
+    the last step's KV slots with the same values)."""
     import functools
 
     from repro_torch.core.graphs import Graphed
@@ -828,7 +828,7 @@ def first_replay_probe(eng) -> dict:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        graph.graph.replay()
+        graph.replay()
         end.record()
         end.synchronize()
         ms.append(start.elapsed_time(end))

@@ -20,6 +20,11 @@ Python: the counts a capture adds are taken back and added again on every
 replay, so each counter reads what the same number of eager calls gives.
 Callers name further counters of the same kind (``WeightStream.copies``).
 
+Work that cannot sit in the graph but must follow each replay, such as
+the weight ring's priming copies, which start on the host after the replay
+is launched so that they run beside its tail, is asked for by the captured
+function (``around_replay``) and runs around every ``replay``.
+
 The graph is uploaded to the card at capture (``cuGraphUpload``): the
 first launch of a graph that was not uploaded does that work itself,
 0.7-1.5 ms over the later replays of qwen2.5-3b's 36-layer decode step on
@@ -45,6 +50,26 @@ KERNEL_COUNTERS = ((decode_attention, "launches"),
                    (flash_attention, "launches"),
                    (flash_attention, "launches_bwd"),
                    (prefill_attention, "launches"))
+
+
+# the host work the function being captured asks for around each replay
+# (``around_replay``), by the id of the object that asked; None while no
+# ``Graphed`` captures
+_replay_hooks: dict[int, tuple[Callable, Callable]] | None = None
+
+
+def around_replay(owner: Any, before: Callable[[], None],
+                  after: Callable[[], None]) -> None:
+    """Run ``before()`` on the host just before, and ``after()`` just
+    after, every replay of the graph that ``Graphed`` is capturing now: one
+    pair per ``owner`` and graph. Raises outside a ``Graphed`` capture,
+    whose replays would not run them."""
+    if _replay_hooks is None:
+        raise RuntimeError("host work around each replay needs a graph "
+                           "captured by graphs.Graphed")
+    if id(owner) in _replay_hooks:
+        raise RuntimeError("one pair of replay hooks per owner and graph")
+    _replay_hooks[id(owner)] = (before, after)
 
 
 def upload_graph(graph: torch.cuda.CUDAGraph) -> float:
@@ -84,8 +109,14 @@ class Graphed:
         torch.cuda.current_stream().wait_stream(side)
         warm = self._read()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.outputs = fn(*self.inputs)
+        global _replay_hooks
+        _replay_hooks = {}
+        try:
+            with torch.cuda.graph(self.graph):
+                self.outputs = fn(*self.inputs)
+        finally:
+            self._hooks = list(_replay_hooks.values())
+            _replay_hooks = None
         self._per_replay = [a - b for a, b in zip(self._read(), warm)]
         self._write(start)
         # (a PyTorch that does not expose the executable graph, or a
@@ -101,7 +132,13 @@ class Graphed:
             setattr(obj, name, v)
 
     def replay(self) -> Any:
-        """Launch the graph on the current stream; returns ``outputs``."""
+        """Launch the graph on the current stream, with the host work its
+        function asked for around it (``around_replay``); returns
+        ``outputs``."""
+        for before, _ in self._hooks:
+            before()
         self.graph.replay()
         self._write([v + d for v, d in zip(self._read(), self._per_replay)])
+        for _, after in self._hooks:
+            after()
         return self.outputs

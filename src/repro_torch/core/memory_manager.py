@@ -16,13 +16,17 @@ copy's event just before the offloaded unit runs, and a copy into a slot
 waits on the event that marks the end of the compute that last read it.
 This is what the reference's ``device_put`` prefetch with device shardings
 describes. On the CPU the prefetch is the identity, as in the reference
-engine.
+engine. The copies of units 0 and 1 start earlier: each walk ends by
+priming the ring for the next (``WeightStream``), so they run under the
+walk's tail and the host's work between walks.
 
 Each walk over the groups forks the side stream from the compute stream
-and joins it back at the end, and every event the ring waits on is
-recorded inside the same walk, so a walk can be captured whole into a
-CUDA graph (``core.graphs``): the copies become memcpy nodes that read the
-pinned offloaded stack ``place`` made.
+and joins it back at the end, and every event the ring waits on inside the
+walk is recorded inside it, so a walk can be captured whole into a CUDA
+graph (``core.graphs``): the copies become memcpy nodes that read the
+pinned offloaded stack ``place`` made. Only the events that hand the
+primed units from one walk to the next cross the graph's edge, as
+external events.
 
 ``decode_step`` is the dense-cache grouped decode every model family runs
 (attention, Mamba, mLSTM, sLSTM, and the encoder-decoder's cross
@@ -36,6 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import sys
 from typing import Any
 
 import torch
@@ -144,13 +149,33 @@ class WeightStream:
     calls ``begin``, then per group ``issue``, ``acquire`` and ``release``
     in group order, then ``end``.
 
-    ``copies`` counts the units issued and ``copy_bytes`` their bytes.
+    ``OffloadRuntime``'s walks (``begin_walk`` / ``fetch`` / ``end_walk``)
+    also keep the host link busy between walks: each ends by *priming* the
+    ring (``prime``), issuing units 0 and 1 (unit 0 alone when G is 1)
+    into their slots once the walk's last reads of those slots have run,
+    so their copies run under the walk's tail and the host's work before
+    the next walk, which takes them without issuing them. Every walk at
+    one placement reads the units in the same order, so the rule holds for
+    decode, prefill and chunk walks alike. Between two walks, units 0 and
+    1 are in the ring or on their way. The events that cross from one walk
+    to the next are external (``landed``: a primed copy has run;
+    ``vacated``: a walk's last read of a slot has run), so a walk captured
+    into a CUDA graph waits on and records them at every replay; the host
+    primes after each replay (``graphs.around_replay``). ``place`` primes
+    a new ring. A walk begun with ``begin`` (a caller's own issues) drops
+    the priming, since it may overwrite both slots.
+
+    ``copies`` counts the units issued, priming included, and
+    ``copy_bytes`` their bytes; ``walks`` counts the walks and
+    ``primed_walks`` those whose first units a previous walk primed.
     With ``timed`` set, a walk also records three timing events per group
     ``g``: ``copy_start`` on the side stream once the slot is free,
     ``copy_end`` beside ``ready``, and ``reach`` on the compute stream just
     before it waits for the copy. They are external events, so a CUDA
     graph captured from a timed walk records them at every replay;
-    ``timings`` reads them once the walk has completed."""
+    ``timings`` reads them once the walk has completed. A priming copy
+    always records its own pair of events, in one of two sets that
+    alternate, so the next walk's priming leaves this walk's readable."""
 
     def __init__(self, host_units: Any, device: torch.device):
         self.host = host_units
@@ -163,16 +188,30 @@ class WeightStream:
         self.slots = [tree_map(lambda t: torch.empty(
             t.shape[1:], dtype=t.dtype, device=device), host_units)
             for _ in range(2)]
+        self.groups = tree_leaves(host_units)[0].shape[0]
+        self.n_prime = min(2, self.groups)
         self.ready = [torch.cuda.Event() for _ in range(2)]
         self.free = [torch.cuda.Event() for _ in range(2)]
+        self.landed = [torch.cuda.Event(external=True) for _ in range(2)]
+        self.vacated = [torch.cuda.Event(external=True) for _ in range(2)]
         self.fork = torch.cuda.Event()
         self.join = torch.cuda.Event()
         self._released = [False, False]   # free[slot] recorded this walk
         self._group = [0, 0]              # the group issued into each slot
+        self._from_prime = [False, False]  # this walk's unit came primed
+        self._primed = 0                  # units primed, not yet walked
+        self._primed_by_walk = False      # ... by the end of a walk
+        self._after_compute = True        # prime after all queued compute
+        self._walk_primed = 0             # units the last walk took primed
+        self._prime_set = 0               # the priming's timing event set
+        self._walk_set = 0                # ... that the last walk took
+        self._prime_events: list | None = None
         self.copies = 0
         self.unit_bytes = sum(t.numel() * t.element_size()
                               for t in tree_leaves(self.slots[0]))
         self.copy_bytes = 0
+        self.walks = 0
+        self.primed_walks = 0
         self.timed = False
         self._events: tuple[list, list, list] | None = None
 
@@ -180,16 +219,15 @@ class WeightStream:
         """(copy_start, copy_end, reach), one event per group each, made
         at the first timed walk."""
         if self._events is None:
-            groups = tree_leaves(self.host)[0].shape[0]
             self._events = tuple(
                 [torch.cuda.Event(enable_timing=True, external=True)
-                 for _ in range(groups)] for _ in range(3))
+                 for _ in range(self.groups)] for _ in range(3))
         return self._events
 
-    def begin(self) -> None:
-        """Fork: the side stream starts after the work queued on the
-        compute stream so far, which covers every read of the ring by
-        earlier walks."""
+    def _fork(self) -> None:
+        """The side stream starts after the work queued on the compute
+        stream so far, which covers every read of the ring by earlier
+        walks."""
         compute = torch.cuda.current_stream(self.device)
         if compute == self.stream:
             raise RuntimeError("the weight ring's side stream is the "
@@ -198,11 +236,108 @@ class WeightStream:
         self.fork.record(compute)
         self.stream.wait_event(self.fork)
         self._released = [False, False]
+        self._from_prime = [False, False]
+
+    def begin(self) -> None:
+        """Fork (``_fork``) for a walk whose units the caller issues: it
+        drops the priming, and the next priming starts after the compute
+        queued by then."""
+        self._fork()
+        self._primed = 0
+        self._after_compute = True
+
+    def begin_walk(self) -> None:
+        """Fork for one of ``OffloadRuntime``'s walks and take the units a
+        priming issued. A walk being captured into a graph only waits for
+        them: each replay of the graph takes the units primed before it,
+        and the host primes again after it (``graphs.around_replay``)."""
+        self._fork()
+        if torch.cuda.is_current_stream_capturing():
+            if self._primed != self.n_prime:
+                raise RuntimeError("a captured walk needs a primed weight "
+                                   "ring (Graphed's eager warm-up primes "
+                                   "it)")
+            graphs.around_replay(self, self._before_replay,
+                                 self._after_replay)
+            self._walk_primed = self._primed
+        else:
+            self._take()
+        for slot in range(self._walk_primed):
+            self._from_prime[slot] = True
+            self._group[slot] = slot
+
+    def _take(self) -> None:
+        """A walk takes the primed units: count it."""
+        self.walks += 1
+        self.primed_walks += int(self._primed > 0 and self._primed_by_walk)
+        self._walk_primed, self._walk_set = self._primed, self._prime_set
+        self._primed = 0
+
+    def fetch(self, g: int) -> int:
+        """Unit ``g``'s slot in a walk begun by ``begin_walk``: issued now,
+        unless a priming issued it."""
+        return g % 2 if g < self._walk_primed else self.issue(g)
+
+    def end_walk(self) -> None:
+        """Join (``end``); then, outside a capture, prime the next walk.
+        The priming copies are not joined: a caller's sync does not wait
+        for them."""
+        self.end()
+        if not torch.cuda.is_current_stream_capturing():
+            self._prime(by_walk=True)
+
+    def _before_replay(self) -> None:
+        # a walk begun by ``begin`` used the slots since the last priming
+        if self._primed != self.n_prime:
+            self.prime()
+
+    def _after_replay(self) -> None:
+        self._take()
+        self._prime(by_walk=True)
+
+    def prime(self) -> None:
+        """Issue units 0 and 1 (unit 0 alone when G is 1) into their
+        slots, after the compute queued so far, for the next walk to take
+        (``begin_walk``). ``place`` primes a new ring."""
+        self._after_compute = True
+        self._prime(by_walk=False)
+
+    def _prime(self, by_walk: bool) -> None:
+        """Each priming copy starts once its slot is free: after the last
+        walk's last read of the slot (``vacated``), or after all compute
+        queued so far when no walk of this ring has ended since it was made
+        or used by ``begin``."""
+        if self._prime_events is None:
+            self._prime_events = [
+                [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                 for _ in range(self.n_prime)] for _ in range(2)]
+        self._prime_set ^= 1
+        events = self._prime_events[self._prime_set]
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self.stream):
+            if self._after_compute:
+                self.fork.record(compute)
+                self.stream.wait_event(self.fork)
+            for g in range(self.n_prime):
+                if not self._after_compute:
+                    self.stream.wait_event(self.vacated[g])
+                events[g][0].record(self.stream)
+                tree_map(lambda d, h: d.copy_(h[g], non_blocking=True),
+                         self.slots[g], self.host)
+                # before ``landed``: a walk that waited for the copy can
+                # read the copy's time
+                events[g][1].record(self.stream)
+                self.landed[g].record(self.stream)
+        self.copies += self.n_prime
+        self.copy_bytes += self.n_prime * self.unit_bytes
+        self._primed, self._primed_by_walk = self.n_prime, by_walk
+        self._after_compute = False
 
     def issue(self, g: int) -> int:
         """Start copying unit ``g`` into its ring slot; returns the slot."""
         slot = g % 2
         self._group[slot] = g
+        self._from_prime[slot] = False
         timing = self._timing_events() if self.timed else None
         with torch.cuda.stream(self.stream):
             if self._released[slot]:
@@ -225,13 +360,18 @@ class WeightStream:
         compute = torch.cuda.current_stream(self.device)
         if self.timed:
             self._timing_events()[2][self._group[slot]].record(compute)
-        compute.wait_event(self.ready[slot])
+        compute.wait_event(self.landed[slot] if self._from_prime[slot]
+                           else self.ready[slot])
         return self.slots[slot]
 
     def release(self, slot: int) -> None:
-        """Mark the end of the compute that read the slot."""
-        self.free[slot].record(torch.cuda.current_stream(self.device))
+        """Mark the end of the compute that read the slot; after the
+        slot's last group, also for the next walk's priming."""
+        compute = torch.cuda.current_stream(self.device)
+        self.free[slot].record(compute)
         self._released[slot] = True
+        if self._group[slot] + 2 >= self.groups:
+            self.vacated[slot].record(compute)
 
     def end(self) -> None:
         """Join: the compute stream waits for the side stream's last
@@ -239,11 +379,25 @@ class WeightStream:
         self.join.record(self.stream)
         torch.cuda.current_stream(self.device).wait_event(self.join)
 
+    def drain(self) -> None:
+        """The compute stream waits for every copy queued on the side
+        stream, a priming's too, so that memory freed after it is not
+        handed out while a copy into it is queued."""
+        torch.cuda.current_stream(self.device).wait_stream(self.stream)
+
+    def __del__(self):
+        # a ring dropped while primed: its slots are freed right after this
+        if self.device.type == "cuda" and not sys.is_finalizing():
+            self.drain()
+
     def timings(self) -> list[tuple[float, float]]:
         """Per group of the last timed walk, once it has completed: the
         copy's ms (``copy_end - copy_start``) and how long the compute
-        stream waited for it (``max(0, copy_end - reach)``)."""
-        start, end, reach = self._timing_events()
+        stream waited for it (``max(0, copy_end - reach)``). A primed
+        group's copy is the priming's, which started before the walk."""
+        start, end, reach = (list(e) for e in self._timing_events())
+        for g in range(self._walk_primed):
+            start[g], end[g] = self._prime_events[self._walk_set][g]
         return [(s.elapsed_time(e), max(0.0, r.elapsed_time(e)))
                 for s, e, r in zip(start, end, reach)]
 
@@ -283,6 +437,16 @@ class OffloadRuntime:
         """Offloaded units copied host-to-device so far."""
         return self._stream.copies if self._stream is not None else 0
 
+    @property
+    def walks(self) -> int:
+        """Walks over the weight ring so far (``WeightStream.walks``)."""
+        return self._stream.walks if self._stream is not None else 0
+
+    @property
+    def primed_walks(self) -> int:
+        """Walks that found their first units primed by a previous walk."""
+        return self._stream.primed_walks if self._stream is not None else 0
+
     def place(self, params_split: Params) -> Params:
         if self.device.type != "cuda":
             return params_split
@@ -296,6 +460,7 @@ class OffloadRuntime:
                          "offloaded": off, "tail": tree_map(dev, blk["tail"])}
         if self.plan.num_groups > 0:
             self._stream = WeightStream(off, self.device)
+            self._stream.prime()
         self.host_weight_bytes = sum(t.numel() * t.element_size()
                                      for t in tree_leaves(off))
         return out
@@ -303,9 +468,11 @@ class OffloadRuntime:
     # ---- the group walk shared by decode and prefill ------------------------
     def _walk(self, params_split: Params, x: torch.Tensor, apply_unit):
         """Run every unit in global order: per group, start the offloaded
-        unit's copy, run the i-1 resident units, then the offloaded unit;
-        then the tail. ``apply_unit(x, unit_params, unit_idx)`` returns
-        (x, cache_or_None). Returns (x, caches split by placement)."""
+        unit's copy (units 0 and 1 were started by the ring's priming), run
+        the i-1 resident units, then the offloaded unit; then the tail, while
+        the ring primes the next walk. ``apply_unit(x, unit_params,
+        unit_idx)`` returns (x, cache_or_None). Returns (x, caches split by
+        placement)."""
         blk = params_split["blocks"]
         g, iv = self.plan.num_groups, self.plan.interval
         stream = None
@@ -316,9 +483,9 @@ class OffloadRuntime:
                                  "this runtime's place() returned")
         res_c, off_c = [], []
         if stream is not None:
-            stream.begin()
+            stream.begin_walk()
         for gi in range(g):
-            slot = stream.issue(gi) if stream is not None else None
+            slot = stream.fetch(gi) if stream is not None else None
             group = []
             for j in range(iv - 1):
                 x, c = apply_unit(x, T.unit_slice(
@@ -334,7 +501,7 @@ class OffloadRuntime:
                 stream.release(slot)
             off_c.append(c)
         if stream is not None:
-            stream.end()
+            stream.end_walk()
         n_tail = tree_leaves(blk["tail"])[0].shape[0]
         tail_c = []
         for t in range(n_tail):
@@ -387,8 +554,9 @@ class OffloadRuntime:
         graph (GPU only; one per runtime, i.e. per interval): callers
         write the next tokens and positions into ``tokens`` / ``pos``,
         ``replay()`` returns (logits, caches_split) and advances the caches
-        in place, and each replay counts its prefetch copies. The capture's
-        eager warm-up call is undone, so the caches hold what they held."""
+        in place, and each replay counts its prefetch copies and primes the
+        ring for the next walk. The capture's eager warm-up call is undone,
+        so the caches hold what they held."""
         saved = tree_map(torch.clone, caches_split)
         counters = ([(self._stream, "copies"), (self._stream, "copy_bytes")]
                     if self._stream is not None else [])

@@ -518,12 +518,14 @@ def ring_walks(rt: OffloadRuntime, walks: int = LINK_WALKS) -> dict:
     per leaf on the ring's side stream, into the slot of the group), after
     one warm-up walk; CUDA events around each walk. Returns the unit's
     bytes, each walk's seconds per unit and the stack's host addresses
-    (the copies are not counted as prefetches)."""
+    (the copies are not counted as prefetches). The walks overwrite the
+    ring's slots, so the ring is primed again after them."""
     ws = rt._stream
     groups = rt.plan.num_groups
     unit_bytes = sum(t[0].numel() * t[0].element_size()
                      for t in tree_leaves(ws.host))
     per_unit = []
+    ws.begin()
     torch.cuda.synchronize()
     with torch.cuda.stream(ws.stream):
         for _ in range(walks + 1):
@@ -536,6 +538,8 @@ def ring_walks(rt: OffloadRuntime, walks: int = LINK_WALKS) -> dict:
             end.record()
             end.synchronize()
             per_unit.append(start.elapsed_time(end) / 1e3 / groups)
+    ws.end()
+    ws.prime()
     return {"unit_bytes": unit_bytes, "groups": groups,
             "unit_copy_s": per_unit[1:],
             "host_ptrs": [t.data_ptr() for t in tree_leaves(ws.host)]}

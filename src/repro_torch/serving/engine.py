@@ -71,8 +71,9 @@ the slab), ``decode.tables``, ``decode.graph_capture``, ``decode.replay``,
 they happen; and per request ``request.queued``, from ``submit`` to the
 scheduler's decision on it. The device calls (``prefill.compute``,
 ``decode.replay``) carry their CUDA-event ms and what the weight ring read
-in them: bytes and unit copies and, on a GPU, each group's copy and stall
-ms (``WeightStream.timed``).
+in them: bytes and unit copies, whether the walk found its first units
+primed by the previous one (``ring_primed``) and, on a GPU, each group's
+copy and stall ms (``WeightStream.timed``).
 
 For a fleet (``serving.fleet``), an instance exports and imports parked
 requests (cross-instance migration) and, in a disaggregated fleet, hands
@@ -361,7 +362,9 @@ class ServingEngine:
         self._runtime: OffloadRuntime | None = None
         self._placed: Any = None
         self._placements = 0              # placements made so far
-        self._prefetch_copies_done = 0    # by runtimes already released
+        # ring counters of the runtimes already released
+        self._ring_done = dict.fromkeys(
+            ("prefetch_copies", "walks", "primed_walks"), 0)
         # the decode step as a CUDA graph (the reference's jitted step), on
         # a GPU: ``_capture`` builds one (a test may stand in its own), and
         # one graph is held at a time, keyed on (interval, pool address,
@@ -533,18 +536,36 @@ class ServingEngine:
     def _release_placement(self) -> None:
         """Drop the placed parameters: their device tensors and pinned
         buffers return to PyTorch's allocators once queued work that reads
-        them has run."""
+        them has run, the ring's priming copies included."""
         if self._runtime is not None:
-            self._prefetch_copies_done += self._runtime.prefetch_copies
+            if self._runtime._stream is not None:
+                self._runtime._stream.drain()
+            for name in self._ring_done:
+                self._ring_done[name] += getattr(self._runtime, name)
         self._runtime = self._placed = None
         self._decode_graph = None         # it reads the released placement
+
+    def _ring_total(self, name: str) -> int:
+        live = getattr(self._runtime, name) if self._runtime else 0
+        return self._ring_done[name] + live
 
     @property
     def prefetch_copies(self) -> int:
         """Offloaded weight units copied host-to-device (side stream), over
         every interval this engine has run at."""
-        live = self._runtime.prefetch_copies if self._runtime else 0
-        return self._prefetch_copies_done + live
+        return self._ring_total("prefetch_copies")
+
+    @property
+    def ring_walks(self) -> int:
+        """Walks over the weight ring, over every interval (0 without a
+        ring: on the CPU, or with nothing offloaded)."""
+        return self._ring_total("walks")
+
+    @property
+    def ring_primed_walks(self) -> int:
+        """Of ``ring_walks``, those whose first units the previous walk
+        primed (``WeightStream.primed_walks``)."""
+        return self._ring_total("primed_walks")
 
     @property
     def host_weight_bytes(self) -> int:
@@ -1235,13 +1256,17 @@ class ServingEngine:
         from the first queued operation to the last, host gaps included).
         With spans on, the call is the span ``name``, which carries that
         time (``ms``) and what the weight ring read in the call: its bytes
-        and unit copies and, when the ring timed them, each group's copy
-        and stall ms (``WeightStream.timings``)."""
+        and unit copies (the priming for the next walk, issued at the
+        call's end, included), whether its walk found its first units
+        primed by the previous walk (``ring_primed``) and, when the ring
+        timed them, each group's copy and stall ms
+        (``WeightStream.timings``)."""
         tr = self.trace
         span = tr.open(name) if tr.spans_on else None
         ring = self._runtime._stream if span and self._runtime else None
         if ring is not None:
             bytes0, copies0 = ring.copy_bytes, ring.copies
+            primed0 = ring.primed_walks
         if self.device.type != "cuda":
             out = fn(*args, **kwargs)
         else:
@@ -1257,7 +1282,9 @@ class ServingEngine:
                 span.attrs["ms"] = log[-1]
             if ring is not None:
                 span.attrs.update(ring_bytes=ring.copy_bytes - bytes0,
-                                  ring_copies=ring.copies - copies0)
+                                  ring_copies=ring.copies - copies0,
+                                  ring_primed=int(ring.primed_walks
+                                                  > primed0))
                 if ring.timed and ring.copies > copies0:
                     got = ring.timings()
                     span.attrs.update(ring_copy_ms=[c for c, _ in got],

@@ -437,6 +437,163 @@ def test_interval_switch_frees_previous_placement(cuda):
     assert held[1] < held[2] < held[NO_OFFLOAD]
 
 
+def _mixed_walks(dev, intervals, switch_at=7, steps=16):
+    """A small dense engine (qwen2.5-3b at width 256, 12 layers) serving six
+    requests whose walks come in a mixed order: one-shot prefills and
+    incremental 16-token chunks (the scheduler's chunk size set per
+    admission), decode steps replayed from the graph and, every third
+    step, run eagerly; the interval switches from ``intervals[0]`` to
+    ``intervals[1]`` at step ``switch_at``. Returns per step the prefill
+    logits (rid, row), the decode logits, each live request's KV pages in
+    its own order and the whole pool, and the engine."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduce_config
+    from repro_torch.core import graphs
+    from repro_torch.core.hardware import PRESETS
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.request import Request
+
+    cfg = reduce_config(get_config("qwen2.5-3b"), d_model=256, heads=4,
+                        layers=12, d_ff=512, vocab=1024)
+    params = build_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    ecfg = EngineConfig(max_batch=4, max_seq=64, page_size=16,
+                        hbm_budget_bytes=1e9, prefill_chunk_tokens=16,
+                        incremental_prefill=True)
+    eng = build_engine("mixed", cfg, PRESETS["h100"], ecfg,
+                       [0.01 * k for k in range(1, 30)], device=dev,
+                       params=params)
+    assert eng.set_interval(intervals[0])
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (9, 30, 14, 40, 7, 22)]
+    # step -> (request, one-shot prefill?)
+    arrivals = {0: [(0, True)], 2: [(1, False)], 4: [(2, True), (3, False)],
+                9: [(4, True)], 11: [(5, False)]}
+    out, walks = [], []
+    for step in range(steps):
+        if step == switch_at:
+            assert eng.set_interval(intervals[1])
+        for i, one_shot in arrivals.get(step, []):
+            eng.scheduler.chunk_tokens = 0 if one_shot else 16
+            eng.submit(Request(rid=i, prompt=prompts[i], max_new_tokens=6,
+                               ttft_slo_s=100.0, tpot_slo_s=100.0))
+        if dev.type == "cuda":
+            eng._capture = None if step % 3 == 1 else graphs.Graphed
+        eng.prefill_log, eng.last_decode = [], None
+        eng.step()
+        kv = {rid: eng.pool[eng.kv.device_pages_of(rid)].cpu()
+              for rid in range(len(prompts)) if eng.kv.device_pages_of(rid)}
+        out.append(([(r.rid, lg.copy()) for r, _, lg in eng.prefill_log],
+                    None if eng.last_decode is None
+                    else eng.last_decode["logits"].copy(), kv,
+                    eng.pool.to("cpu", copy=True)))
+        ring = eng._runtime._stream if eng._runtime else None
+        walks.append(None if ring is None else (ring.walks,
+                                                ring.primed_walks))
+    return out, walks, eng
+
+
+@pytest.mark.cuda
+def test_primed_walks_are_bitwise_unoffloaded(cuda):
+    """Every walk at a held interval ends by priming the next one's units
+    0 and 1: over one-shot prefills, incremental chunks, eager and graphed
+    decode steps in a mixed order, at interval 4 (3 groups) and, after a
+    switch, at interval 3 (4 groups), each prefill and decode logit row and
+    the KV pages are bitwise the same sequence with nothing offloaded (the
+    whole pool too, until the switch remaps its frames), and after each
+    placement every walk but the first was primed by the walk before."""
+    from repro_torch.core.interval import NO_OFFLOAD
+
+    got, walks, eng = _mixed_walks(cuda, (4, 3))
+    want, none, ref = _mixed_walks(cuda, (NO_OFFLOAD, NO_OFFLOAD))
+    assert all(w is None for w in none)
+    for step, ((gp, gd, gkv, gpool), (wp, wd, wkv, wpool)) in enumerate(
+            zip(got, want)):
+        assert [r for r, _ in gp] == [r for r, _ in wp], step
+        for (_, a), (_, b) in zip(gp, wp):
+            assert np.array_equal(a, b), step
+        assert (gd is None) == (wd is None), step
+        assert gd is None or np.array_equal(gd, wd), step
+        assert gkv.keys() == wkv.keys(), step
+        for rid in gkv:
+            assert torch.equal(gkv[rid], wkv[rid]), (step, rid)
+        if step < 7:
+            assert torch.equal(gpool, wpool), step
+        n, primed = walks[step]
+        assert n > 0 and primed == n - 1, (step, walks[step])
+    assert walks[6][0] > walks[7][0]         # a new placement at the switch
+    assert eng.decode_graph_captures >= 2 and eng.ring_walks > 0
+    assert ({r.rid: r.generated for r in eng.finished}
+            == {r.rid: r.generated for r in ref.finished})
+
+
+@pytest.mark.cuda
+def test_priming_copies_run_in_the_host_gap(cuda):
+    """The ring primes the next walk as soon as a replay is launched, so
+    its copies run while the host works between two replays: with a host
+    sleep of one unit's copy time before the second replay (qwen2.5-3b's
+    width, 9 layers at interval 3: three 154 MB units), group 0 waits
+    under 10% of a copy there, and the replay is shorter than the first by
+    at least half a copy. The first replay starts from a ring that a
+    caller's walk (``begin``) used, so it primes at its own launch, as a
+    walk without priming copies."""
+    import time
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduce_config
+    from repro_torch.core import graphs
+    from repro_torch.core.analyzer import decode_pool, paged_decode_inputs
+    from repro_torch.core.interval import OffloadPlan
+    from repro_torch.core.memory_manager import (OffloadRuntime,
+                                                 split_model_params)
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import pattern_info
+
+    cfg = reduce_config(get_config("qwen2.5-3b"), d_model=2048, heads=16,
+                        layers=9, d_ff=11008, vocab=1024)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    _, units = pattern_info(cfg)
+    rt = OffloadRuntime(model, OffloadPlan(units, 3), cuda)
+    placed = rt.place(split_model_params(params, rt.plan))
+    ring = rt._stream
+    assert rt.plan.num_groups == 3
+    ring.timed = True
+    pool = decode_pool(cfg, model.virtual_kv, 4, 64, cuda)
+    d = paged_decode_inputs(pool, 4, 64)
+    tokens = torch.zeros(4, dtype=torch.int32, device=cuda)
+    g = graphs.Graphed(
+        lambda *a: rt.paged_decode_step(placed, *a),
+        (tokens, d.pos, pool, d.block_tables, d.context_lens,
+         d.write_frames, d.write_offsets),
+        [(ring, "copies"), (ring, "copy_bytes")])
+    torch.cuda.synchronize()
+    ring.begin()
+    ring.end()
+
+    def timed_replay():
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        g.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end), ring.timings()
+
+    torch.cuda.synchronize()
+    ms1, t1 = timed_replay()
+    copy_ms = float(np.median([c for c, _ in t1]))
+    time.sleep(copy_ms / 1e3)
+    ms2, t2 = timed_replay()
+    torch.cuda.synchronize()
+    assert t1[0][1] > 0.5 * copy_ms, (t1, copy_ms)    # unprimed: it waited
+    assert t2[0][1] < 0.1 * copy_ms, (t2, copy_ms)
+    assert ms2 <= ms1 - 0.5 * copy_ms, (ms1, ms2, copy_ms)
+    assert ring.primed_walks == ring.walks - 2   # the warm-up's, the first
+
+
 def _small_disk_params():
     from repro_torch.configs import get_config
     from repro_torch.configs.reduced import reduce_config

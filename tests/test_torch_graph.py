@@ -188,6 +188,173 @@ def test_graph_counters_add_captured_counts_per_replay(monkeypatch):
     assert torch.equal(g.outputs, torch.ones(2))
 
 
+class _CapturingCuda(_FakeCuda):
+    """``_FakeCuda`` with events and a capture flag, for a ``WeightStream``
+    on the CPU: its copies are real CPU copies into the slots."""
+
+    capturing = False
+
+    class Stream(_FakeCuda.Stream):
+        def __init__(self, *a, **k):
+            pass
+
+        def wait_event(self, ev):
+            pass
+
+    class Event:
+        def __init__(self, *a, **k):
+            pass
+
+        def record(self, stream=None):
+            pass
+
+    @staticmethod
+    def current_stream(device=None):
+        return _CapturingCuda.Stream()
+
+    @staticmethod
+    @contextlib.contextmanager
+    def graph(g):
+        _CapturingCuda.capturing = True
+        try:
+            yield
+        finally:
+            _CapturingCuda.capturing = False
+
+    @staticmethod
+    def is_current_stream_capturing():
+        return _CapturingCuda.capturing
+
+
+def _ring_runtime(monkeypatch, interval, layers=6):
+    """A runtime whose walks drive a ``WeightStream`` as on a GPU, with the
+    CUDA calls stood in on the CPU (``_CapturingCuda``), beside the same
+    model with nothing offloaded; and both placed parameter trees."""
+    from repro_torch.core.interval import NO_OFFLOAD
+    from repro_torch.core.memory_manager import (OffloadRuntime,
+                                                 split_model_params)
+
+    for name in ("Stream", "Event", "CUDAGraph", "current_stream", "stream",
+                 "graph", "is_current_stream_capturing"):
+        monkeypatch.setattr(torch.cuda, name, getattr(_CapturingCuda, name))
+    cfg = reduce_config(get_config("qwen2.5-3b"), d_model=64, heads=2,
+                        layers=layers, d_ff=128, vocab=128)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    _, units = pattern_info(cfg)
+    ref = OffloadRuntime(model, OffloadPlan(units, NO_OFFLOAD), "cpu")
+    rt = OffloadRuntime(model, OffloadPlan(units, interval), "cpu")
+    placed = split_model_params(params, rt.plan)
+    rt.device = torch.device("cuda")       # the walks take the ring's path
+    from repro_torch.core.memory_manager import WeightStream
+    rt._stream = WeightStream(placed["blocks"]["offloaded"],
+                              torch.device("cpu"))
+    rt._stream.prime()
+    return cfg, rt, placed, ref, split_model_params(params, ref.plan)
+
+
+def _slots_hold_first_units(ring):
+    """Between two walks, units 0 and 1 sit in slots 0 and 1."""
+    for slot in range(ring.n_prime):
+        for d, h in zip(tree_leaves(ring.slots[slot]),
+                        tree_leaves(ring.host)):
+            assert torch.equal(d, h[slot]), slot
+
+
+@pytest.mark.parametrize("interval", [2, 3, 6], ids=["g3", "g2", "g1"])
+def test_walks_prime_the_next_walk(monkeypatch, interval):
+    """Each walk ends by priming the ring: between walks the slots hold
+    units 0 and 1 (unit 0 alone at one group), the next walk takes them
+    without copying them again, and every walk computes what the model
+    computes with nothing offloaded, prefill and decode steps alike. A
+    priming's copies count once, when issued: a walk adds G copies, and
+    every walk but the first after ``place`` counts as primed."""
+    cfg, rt, placed, ref, ref_placed = _ring_runtime(monkeypatch, interval)
+    ring, g = rt._stream, rt.plan.num_groups
+    assert (ring.copies, ring.walks, ring.primed_walks) == (ring.n_prime,
+                                                            0, 0)
+    _slots_hold_first_units(ring)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 9),
+                           generator=torch.Generator().manual_seed(1))
+    logits, caches, _ = rt.prefill(placed, {"tokens": tokens}, 16)
+    want, ref_caches, _ = ref.prefill(ref_placed, {"tokens": tokens}, 16)
+    assert torch.equal(logits, want)
+    pos = torch.full((2,), 9, dtype=torch.int32)
+    for step in range(3):
+        c0 = ring.copies
+        tok = want.argmax(-1).to(torch.int32)
+        logits, caches = rt.decode_step(placed, tok, pos, caches)
+        want, ref_caches = ref.decode_step(ref_placed, tok, pos, ref_caches)
+        assert torch.equal(logits, want), step
+        assert ring.copies - c0 == g
+        assert (ring.walks, ring.primed_walks) == (step + 2, step + 1)
+        _slots_hold_first_units(ring)
+        pos = pos + 1
+    assert ring.copy_bytes == ring.copies * ring.unit_bytes
+    assert (rt.walks, rt.primed_walks) == (ring.walks, ring.primed_walks)
+
+
+def test_captured_walk_primes_around_each_replay(monkeypatch):
+    """A walk captured by ``Graphed`` waits for the primed units without
+    taking them (the eager warm-up primed the ring, and the graph's first
+    replay takes that priming); each replay takes the priming and primes
+    again on the host, so it counts as one primed walk of G copies, and
+    a ring that a caller's own walk (``begin``) used is primed before the
+    replay. A graph holds one walk of a ring."""
+    cfg, rt, placed, *_ = _ring_runtime(monkeypatch, 2)
+    ring, g = rt._stream, rt.plan.num_groups
+    tokens = torch.randint(0, cfg.vocab_size, (1, 8),
+                           generator=torch.Generator().manual_seed(2))
+    _, caches, _ = rt.prefill(placed, {"tokens": tokens}, 12)
+    tok = torch.zeros(1, dtype=torch.int32)
+    pos = torch.full((1,), 8, dtype=torch.int32)
+    w0 = ring.walks
+    graph = rt.capture_decode(placed, tok, pos, caches)
+    # the warm-up walked and primed; the capture took nothing
+    assert (ring.walks, ring._primed) == (w0 + 1, ring.n_prime)
+    assert len(graph._hooks) == 1
+    for k in range(1, 4):
+        c0 = ring.copies
+        graph.replay()
+        assert ring.copies - c0 == g           # G-2 in the graph, 2 primed
+        assert (ring.walks, ring.primed_walks) == (w0 + 1 + k, w0 + k)
+        assert ring._primed == ring.n_prime
+    ring.begin()                 # a caller's walk overwrites the slots
+    ring.end()
+    assert ring._primed == 0
+    c0 = ring.copies
+    graph.replay()               # primed first, then as before
+    assert ring.copies - c0 == g + ring.n_prime
+    assert ring.primed_walks == ring.walks - 2
+
+    def twice(x):
+        rt.decode_step(placed, tok, pos, caches)
+        return rt.decode_step(placed, tok, pos, caches)
+
+    with pytest.raises(RuntimeError, match="one pair"):
+        graphs.Graphed(twice, (None,))
+    with pytest.raises(RuntimeError, match="needs a graph captured"):
+        graphs.around_replay(ring, lambda: None, lambda: None)
+
+
+@pytest.mark.parametrize("interval", [2, "none"])
+def test_engine_without_a_ring_counts_no_walks(interval):
+    """On the CPU, and with nothing offloaded, there is no ring: the
+    engine serves as before and its ring counters stay 0."""
+    from repro_torch.core.interval import NO_OFFLOAD
+
+    eng, _ = _engine("no_ring")
+    for i, n in enumerate((5, 11)):
+        eng.submit(Request(rid=i, prompt=np.arange(n, dtype=np.int32),
+                           max_new_tokens=4, ttft_slo_s=10.0,
+                           tpot_slo_s=10.0))
+    assert eng.set_interval(NO_OFFLOAD if interval == "none" else interval)
+    eng.run([])
+    assert len(eng.finished) == 2
+    assert (eng.ring_walks, eng.ring_primed_walks, eng.prefetch_copies) == (
+        0, 0, 0)
+
+
 # ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
@@ -335,7 +502,9 @@ def test_placement_link_times_the_engines_own_stack(cuda):
     """``profile_engine.placement_link`` times walks of the ring's copies
     out of the pinned stack that the measured engine then streams from:
     the walks read the adopted runtime's host leaves, which stay the
-    engine's through its steps, and the walks add no prefetch."""
+    engine's through its steps, and add no prefetch: the only ones are the
+    placement's priming of the ring and the priming again after the walks,
+    which overwrote its slots."""
     from repro_torch.launch import profile_engine as P
 
     cfg, _ = _card_model()
@@ -350,7 +519,7 @@ def test_placement_link_times_the_engines_own_stack(cuda):
     assert len(walks["unit_copy_s"]) == P.LINK_WALKS
     assert all(t > 0 for t in walks["unit_copy_s"])
     assert pl["link"]["slowest_gb_s"] <= pl["link"]["median_gb_s"]
-    assert rt.prefetch_copies == 0
+    assert rt.prefetch_copies == 2 * rt._stream.n_prime
     eng = build_engine("adopted", cfg, PRESETS["h100"], ecfg,
                        [0.002 * k for k in range(1, 30)], device="cuda",
                        params=pl["params"])

@@ -259,10 +259,11 @@ def test_ring_byte_counter_advances_per_replay(monkeypatch):
 
 def test_decode_graph_counts_the_ring_bytes_and_keys_on_spans():
     """The engine registers the ring's byte counter with its decode graph,
-    and captures again when spans are switched on."""
+    and captures again when spans are switched on; the replay's span says
+    whether its walk was primed."""
 
     class Ring:
-        copies = copy_bytes = 0
+        copies = copy_bytes = walks = primed_walks = 0
         timed = False
         unit_bytes = 1
 
@@ -283,7 +284,8 @@ def test_decode_graph_counts_the_ring_bytes_and_keys_on_spans():
     eng.step()
     assert eng.decode_graph_captures == 3 and ring.timed
     replay = [s for s in eng.trace.wall_spans if s.name == "decode.replay"]
-    assert replay[-1].attrs == {"ring_bytes": 0, "ring_copies": 0}
+    assert replay[-1].attrs == {"ring_bytes": 0, "ring_copies": 0,
+                                "ring_primed": 0}
     taken = eng.trace.take_wall_spans()
     assert replay[-1] in taken and eng.trace.wall_spans == []
 
